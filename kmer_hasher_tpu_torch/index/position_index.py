@@ -137,7 +137,7 @@ class KmerIndex:
     match it element for element.
     """
 
-    def __init__(self, seq, k: int, do_sort: bool = False, device="cpu"):
+    def __init__(self, seq, k: int, do_sort: bool = False, device="cuda"):
         if not 1 <= k <= MAX_K:
             raise ValueError("k must be a positive integer less than 1+MAX_K")
         seq = as_sequence(seq)
@@ -177,7 +177,7 @@ class KmerIndex:
         return ix
 
     @classmethod
-    def build_many(cls, seqs, k: int, device="cpu") -> "List[KmerIndex]":
+    def build_many(cls, seqs, k: int, device="cuda") -> "List[KmerIndex]":
         """One index per sequence, in input order; every input is checked
         before any is built. The JAX package batches short sequences into
         [B, L] builds as a TPU tuning; its outputs are the same."""

@@ -1,10 +1,15 @@
 """Build the port's CUDA kernels at first use.
 
 ``nvcc`` compiles every ``csrc/*.cu`` (plain C entry points, no PyTorch
-headers) for ``sm_90a`` into one shared library, loaded with ``ctypes``. A
-build takes seconds. The library is cached under
+headers) for ``sm_90a``, one compiler process per source and all started
+together, and links the objects into one shared library, loaded with
+``ctypes``. A build takes seconds. The library is cached under
 ``kmer_hasher_tpu_torch/build/`` by a hash of the sources and flags, so a
-changed source rebuilds and an unchanged one loads at once.
+changed source or flag rebuilds and an unchanged one loads at once.
+
+``--fmad=false``: B2's f32 error lanes are held bitwise against a plain
+version whose every product and sum is rounded on its own, so nvcc must
+not contract a multiply and an add into one fused operation.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -24,7 +29,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -71,16 +76,36 @@ def build() -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [str(find_nvcc()), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources() if s.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{res.stdout}{res.stderr}"
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n{log}")
-    out.with_suffix(".log").write_text(log)
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    nvcc = str(find_nvcc())
+    tag = f"{out.stem}.{os.getpid()}"
+    cus = [s for s in sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in cus]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            for s, o in zip(cus, objs)]
+    log = ""
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        failed = None
+        for c, p in zip(cmds, procs):  # every process is waited for
+            text, _ = p.communicate()
+            log += f"$ {' '.join(c)}\n{text}"
+            if p.returncode != 0 and failed is None:
+                failed = p.returncode
+        if failed is None:
+            link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            res = subprocess.run(link, capture_output=True, text=True)
+            log += f"$ {' '.join(link)}\n{res.stdout}{res.stderr}"
+            failed = res.returncode or None
+        if failed is not None:
+            raise RuntimeError(f"nvcc failed (exit {failed}):\n{log}")
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
 
 

@@ -17,8 +17,8 @@ Base encoding matches the reference: ``code(c) = (c >> 1) & 3`` maps A->0
 C->1 T->2 G->3 for both cases; N detection is ``(c | 0x20) == 'n'``.
 Functions work on the last axis and broadcast over a leading batch axis.
 
-Still to come with the counting path: ``revcomp_windows``,
-``canonical_windows``, ``unpack_seq``, ``unpack_qual``, ``unpack_qual6``.
+Still to come with the packed upload forms: ``unpack_seq``,
+``unpack_qual``, ``unpack_qual6``.
 """
 from __future__ import annotations
 
@@ -169,12 +169,41 @@ def drop_trailing_mask(ascii_u8: torch.Tensor, k: int,
     return ~((idx == tl - k) & prev_is_n)
 
 
+def _rev_groups(x: torch.Tensor) -> torch.Tensor:
+    """Reverse the order of the thirty-two 2-bit groups of each int64.
+    Right shifts are arithmetic, so every one is masked after shifting."""
+    for s, m in ((32, 0x00000000FFFFFFFF), (16, 0x0000FFFF0000FFFF),
+                 (8, 0x00FF00FF00FF00FF), (4, 0x0F0F0F0F0F0F0F0F),
+                 (2, 0x3333333333333333)):
+        x = ((x >> s) & m) | ((x & m) << s)
+    return x
+
+
+def revcomp_windows(raw: torch.Tensor, k: int) -> torch.Tensor:
+    """Reverse complement of raw k-mer patterns, position-parallel:
+    complement is xor 0b10 per 2-bit group, order is the full 64-bit group
+    reversal, then a logical shift right by 64 - 2k (the reference keeps a
+    second rolling register instead, src/kmer_util.h:9)."""
+    r = _rev_groups(raw ^ -0x5555555555555556)  # the pattern 0xAAAA...AAAA
+    if k == 32:
+        return r
+    return (r >> (64 - 2 * k)) & ((1 << (2 * k)) - 1)
+
+
+def canonical_windows(fwd: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
+    """min(fwd, rc) per window as unsigned 2k-bit numbers (the semantics of
+    src/kmer_reader.c:30): compared through :func:`sortable_key`, because at
+    k == 32 the raw int64 order is not the unsigned order."""
+    return torch.where(sortable_key(fwd) <= sortable_key(rc), fwd, rc)
+
+
 def encode_stream(ascii_u8: torch.Tensor, k: int, true_len,
+                  canonical: bool = False,
                   drop_trailing_exact_k: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full encode: ASCII bytes -> (raw key int64, valid bool) per window
     start, for a 1-D sequence (scalar ``true_len``) or a [B, L] batch (one
-    length per row).
+    length per row). ``canonical`` gives min(forward, reverse complement).
 
     A CUDA tensor runs the B1 kernel, a CPU tensor its plain version (the
     functions above); the two are bitwise equal. The trailing-exact-k quirk
@@ -185,4 +214,6 @@ def encode_stream(ascii_u8: torch.Tensor, k: int, true_len,
     key, valid = encode(ascii_u8, k, true_len)
     if drop_trailing_exact_k:
         valid &= drop_trailing_mask(ascii_u8, k, true_len)
+    if canonical:
+        key = canonical_windows(key, revcomp_windows(key, k))
     return key, valid

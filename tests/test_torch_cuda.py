@@ -1,4 +1,5 @@
-"""B1's CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels B1 and B2 against their plain PyTorch versions, and
+the paths through them against the CPU, on the card.
 
 Needs a CUDA device: marked ``cuda`` and skipped (visibly) without one.
 Imports neither JAX nor kmer_hasher_tpu, so it runs on a machine with
@@ -12,7 +13,9 @@ import pytest
 import torch
 
 from kmer_hasher_tpu_torch import api
-from kmer_hasher_tpu_torch.ops import cuda_encode
+from kmer_hasher_tpu_torch import counting
+from kmer_hasher_tpu_torch.ops import cuda_encode, cuda_scan
+from kmer_hasher_tpu_torch.qll import Q_TO_LL
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +87,109 @@ def test_index_on_card_matches_cpu(cuda, k):
         q = seq[900:1500]
         assert torch.equal(api.seq_kmer_pos(g, q, k).cpu(),
                            api.seq_kmer_pos(c, q, k))
+
+
+def read_batch(rng, k, B=300, L=151, quals="binned"):
+    """A ragged batch: lengths 0, k, k+1, full and random."""
+    seq = rng.choice(np.frombuffer(b"ACGTacgtN", np.uint8), size=(B, L))
+    if quals == "binned":
+        q = rng.choice(np.frombuffer(b"F:,#", np.uint8), size=(B, L),
+                       p=[0.88, 0.08, 0.02, 0.02])
+    else:
+        q = (33 + rng.integers(0, 42, size=(B, L))).astype(np.uint8)
+    lengths = rng.integers(0, L + 1, size=B).astype(np.int32)
+    lengths[:4] = (0, k, k + 1, L)
+    return seq, q, lengths
+
+
+@pytest.mark.parametrize("quals", ["binned", "uniform"])
+@pytest.mark.parametrize("variant", ["exact", "fast", "flags"])
+@pytest.mark.parametrize("k", [5, 16, 17, 21, 31, 32])
+def test_b2_kernel_matches_plain(cuda, k, variant, quals):
+    rng = np.random.default_rng(31 * k)
+    args = [torch.from_numpy(a).to(cuda) for a in read_batch(rng, k,
+                                                             quals=quals)]
+    kw = dict(precision="exact" if variant == "exact" else "fast",
+              return_flags=variant == "flags",
+              min_q_char=53 if variant == "flags" else None)
+    before = cuda_scan.scan.launches
+    got = cuda_scan.scan(*args, k, float(Q_TO_LL[53]), **kw)
+    torch.cuda.synchronize()
+    assert cuda_scan.scan.launches == before + 1
+    want = cuda_scan.plain(*args, k, float(Q_TO_LL[53]), **kw)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("quals", ["low", "constant"])
+def test_b2_flags_near_the_threshold(cuda, quals):
+    """Thresholds swept around achievable window sums, so that comparisons
+    land inside the tracked error band: the error lanes of kernel and plain
+    version agree bitwise; with one constant quality every window sum sits
+    on the threshold and reads do flag."""
+    from kmer_hasher_tpu_torch.ops.scan_iter import ll_table_f32
+
+    k = 9
+    rng = np.random.default_rng(1)
+    B, L = 256, 40
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=(B, L))]
+    if quals == "low":
+        qual = (33 + rng.integers(2, 11, size=(B, L))).astype(np.uint8)
+    else:
+        qual = np.full((B, L), 33 + 40, np.uint8)
+    sums = np.sort(np.lib.stride_tricks.sliding_window_view(
+        ll_table_f32()[qual].astype(np.float64), k + 1, axis=1
+    ).sum(-1).ravel())
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (seq, qual, np.full(B, L, np.int32))]
+    n_flagged = 0
+    for anchor in (sums[sums.size // 6], sums[sums.size // 2]):
+        for off in (-3e-6, -2.5e-6, 0.0, 1.5e-6, 2e-6, 2.5e-6, 3e-6):
+            got = cuda_scan.scan(*args, k, float(anchor + off),
+                                 precision="fast", return_flags=True)
+            want = cuda_scan.plain(*args, k, float(anchor + off),
+                                   precision="fast", return_flags=True)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            n_flagged += int(got[3].sum())
+    assert n_flagged > 0 or quals == "low"
+
+
+def test_b2_rejects_what_it_does_not_take(cuda):
+    seq = torch.zeros((8, 64), dtype=torch.uint8, device=cuda)
+    lens = torch.full((8,), 64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        cuda_scan.scan(seq.t()[:8], seq, lens, 5, -0.01)
+    with pytest.raises(TypeError):
+        cuda_scan.scan(seq.int(), seq, lens, 5, -0.01)
+    with pytest.raises(ValueError):
+        cuda_scan.scan(seq, seq, lens[:3], 5, -0.01)
+    with pytest.raises(ValueError):
+        cuda_scan.scan(seq, seq, lens.cpu(), 5, -0.01)
+
+
+@pytest.mark.parametrize("exact_ll", [True, False, "hybrid"])
+def test_counting_on_card_matches_cpu(cuda, exact_ll):
+    k = 21
+    rng = np.random.default_rng(5)
+    seq, qual, lengths = read_batch(rng, k, B=2000)
+    has_qual = np.arange(2000) % 50 != 7
+    stores = []
+    for dev in (cuda, "cpu"):
+        st = api.CountStore(k, counts_n=2, device=dev)
+        b1, b2 = cuda_encode.encode.launches, cuda_scan.scan.launches
+        counting.count_batches(st, [(seq, qual, lengths, has_qual)] * 2, k,
+                               source=1, exact_ll=exact_ll)
+        if dev == cuda:
+            assert cuda_scan.scan.launches > b2
+            assert cuda_encode.encode.launches > b1
+        stores.append(st)
+    g, c = stores
+    assert g.counts_dict() == c.counts_dict()
+    np.testing.assert_array_equal(g.total_added, c.total_added)
+    np.testing.assert_array_equal(api.kmer_spectrum(g, 50),
+                                  api.kmer_spectrum(c, 50))
+    probe = seq[3]
+    assert torch.equal(api.seq_kmer_depth(g, probe, k).cpu(),
+                       api.seq_kmer_depth(c, probe, k))

@@ -94,6 +94,34 @@ def test_b1_plain_batch_matches_pallas_interpret(k):
     np.testing.assert_array_equal(key.numpy()[v], raw_from_jax(hi, lo)[v])
 
 
+@pytest.mark.parametrize("k", [1, 5, 16, 17, 21, 31, 32])
+def test_revcomp_and_canonical_match_jax(k):
+    rng = np.random.default_rng(400 + k)
+    L = 600
+    seq = random_seq(rng, L)
+    seq[100:100 + 40] = ord("G")  # all-G windows: bit 63 at k=32, rc = all-C
+    hi, lo, v = jenc.encode_stream(seq, k, L)
+    rhi, rlo = jenc.revcomp_windows(hi, lo, k)
+    raw = torch.from_numpy(raw_from_jax(hi, lo))
+    rc = tenc.revcomp_windows(raw, k)
+    np.testing.assert_array_equal(rc.numpy(), raw_from_jax(rhi, rlo))
+    chi, clo = jenc.canonical_windows(hi, lo, rhi, rlo)
+    np.testing.assert_array_equal(tenc.canonical_windows(raw, rc).numpy(),
+                                  raw_from_jax(chi, clo))
+    # the stream entry, 1-D and batched
+    hi, lo, v = jenc.encode_stream(seq, k, L - 5, canonical=True)
+    key, valid = tenc.encode_stream(torch.from_numpy(seq), k, L - 5,
+                                    canonical=True)
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(v))
+    np.testing.assert_array_equal(key.numpy(), raw_from_jax(hi, lo))
+    seq2, lens = batch(rng, k, B=6)
+    hi, lo, v = jenc.encode_stream(seq2, k, lens, canonical=True)
+    key, valid = tenc.encode_stream(torch.from_numpy(seq2), k,
+                                    torch.from_numpy(lens), canonical=True)
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(v))
+    np.testing.assert_array_equal(key.numpy(), raw_from_jax(hi, lo))
+
+
 @pytest.mark.parametrize("k", [4, 21])
 def test_drop_trailing_mask_matches_jax(k):
     rng = np.random.default_rng(500 + k)

@@ -88,7 +88,7 @@ def test_build_index_arrays_batch_matches_jax(k):
     (16, "G" * 20 + "A" + "G" * 17 + "N" + "ACGT" * 4),
 ])
 def test_all_g_kmers_with_invalid_tail(k, seq):
-    t, j = KmerIndex(seq, k), JaxIndex(seq, k)
+    t, j = KmerIndex(seq, k, device="cpu"), JaxIndex(seq, k)
     assert_same_index(t, j)
     want = rs.kmer_positions(rs.make_kmer_hash(seq, k), 15)
     assert_same_tables(t.tables(15), want)
@@ -98,7 +98,7 @@ def test_all_g_kmers_with_invalid_tail(k, seq):
 @pytest.mark.parametrize("k", [5, 16, 21, 31, 32])
 def test_tables_match_jax_and_refsem(k):
     seq = repeat_seq(k)
-    t, j = KmerIndex(seq, k), JaxIndex(seq, k)
+    t, j = KmerIndex(seq, k, device="cpu"), JaxIndex(seq, k)
     assert_same_index(t, j)
     got = t.tables(15)
     assert_same_tables(got, j.tables(15))
@@ -114,7 +114,7 @@ def test_pair_chunks_multichunk_match_jax(k):
     seq = np.concatenate([random_seq(rng, 300, 1),
                           np.tile(random_seq(rng, 97, 0), 12),
                           random_seq(rng, 200, 1)])
-    t, j = KmerIndex(seq, k), JaxIndex(seq, k)
+    t, j = KmerIndex(seq, k, device="cpu"), JaxIndex(seq, k)
     chunks = list(t.iter_pair_chunks(capacity=1024))
     assert len(chunks) > 1 and all(len(c) <= 1024 for c in chunks)
     got = torch.cat(chunks).numpy()
@@ -128,30 +128,30 @@ def test_build_many_matches_individual_and_jax():
     base = repeat_seq(3)
     seqs = [base[:500], base[500:1700], base[1700:1764], base[:300],
             "ACTG" * 40 + "N" + "GGATC" * 30, base[1000:1400]]
-    many = KmerIndex.build_many(seqs, k)
+    many = KmerIndex.build_many(seqs, k, device="cpu")
     jmany = JaxIndex.build_many(seqs, k)
     assert len(many) == len(seqs)
     for s, ix, jx in zip(seqs, many, jmany):
-        one = KmerIndex(s, k)
+        one = KmerIndex(s, k, device="cpu")
         assert torch.equal(ix.s_key, one.s_key)
         assert_same_tables(ix.tables(15), jx.tables(15))
 
 
 def test_validation_errors():
     with pytest.raises(ValueError):
-        KmerIndex("ACGT", 0)
+        KmerIndex("ACGT", 0, device="cpu")
     with pytest.raises(ValueError):
-        KmerIndex("ACGT", 33)
+        KmerIndex("ACGT", 33, device="cpu")
     with pytest.raises(ValueError):
-        KmerIndex("ACGT", 4)
+        KmerIndex("ACGT", 4, device="cpu")
     with pytest.raises(ValueError):
-        KmerIndex(np.zeros((2, 40), np.uint8), 4)
+        KmerIndex(np.zeros((2, 40), np.uint8), 4, device="cpu")
     with pytest.raises(ValueError):
-        KmerIndex.build_many(["ACGTACGT", "ACG"], 4)
+        KmerIndex.build_many(["ACGTACGT", "ACG"], 4, device="cpu")
     with pytest.raises(ValueError):
-        KmerIndex.build_many(["ACGTACGT"], 40)
+        KmerIndex.build_many(["ACGTACGT"], 40, device="cpu")
     with pytest.raises(MemoryError):
-        KmerIndex("A" * 100, 4).pair_table(max_pairs=10)
+        KmerIndex("A" * 100, 4, device="cpu").pair_table(max_pairs=10)
 
 
 def test_cuda_device_without_card_raises():
@@ -165,7 +165,7 @@ def test_cuda_device_without_card_raises():
 def test_index_without_valid_windows():
     # no valid window at all: empty tables, same arrays as the JAX package
     seq = "NNNNACGNNNNNNNNNNNNNNNNN"
-    t, j = KmerIndex(seq, 4), JaxIndex(seq, 4)
+    t, j = KmerIndex(seq, 4, device="cpu"), JaxIndex(seq, 4)
     assert t.n_valid == 0 and t.total_pairs == 0
     assert_same_index(t, j)
     tabs = t.tables(15)

@@ -30,7 +30,8 @@ def ref_and_query(seed, L=2000):
 @pytest.mark.parametrize("k", [4, 16, 21, 31])
 def test_seq_kmer_pos_matches_jax_and_refsem(k):
     ref, qry = ref_and_query(k)
-    got = api.seq_kmer_pos(api.make_kmer_hash(ref, k), qry, k).numpy()
+    got = api.seq_kmer_pos(api.make_kmer_hash(ref, k, device="cpu"), qry,
+                           k).numpy()
     want = rs.seq_kmer_positions(rs.make_kmer_hash(ref, k), qry, k)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
@@ -41,7 +42,7 @@ def test_seq_kmer_pos_matches_jax_and_refsem(k):
 def test_query_chunks_concatenate_to_full():
     k = 12
     ref, qry = ref_and_query(5)
-    idx = api.make_kmer_hash(ref, k)
+    idx = api.make_kmer_hash(ref, k, device="cpu")
     chunks = list(api.iter_seq_kmer_pos_chunks(idx, qry, k, capacity=64))
     full = api.seq_kmer_pos(idx, qry, k)
     assert len(chunks) > 1
@@ -54,7 +55,8 @@ def test_query_on_jax_built_index():
     ref, qry = ref_and_query(9)
     j = japi.make_kmer_hash(ref, k)
     t = index_from_numpy(j.k, j.seq_len, np.asarray(j.s_hi),
-                         np.asarray(j.s_lo), np.asarray(j.s_pos), j.n_valid)
+                         np.asarray(j.s_lo), np.asarray(j.s_pos), j.n_valid,
+                         device="cpu")
     np.testing.assert_array_equal(api.seq_kmer_pos(t, qry, k).numpy(),
                                   japi.seq_kmer_pos(j, qry, k))
     np.testing.assert_array_equal(api.kmer_pos(t, 2)["pos"].numpy(),
@@ -62,7 +64,7 @@ def test_query_on_jax_built_index():
 
 
 def test_query_validation_and_no_hits():
-    idx = api.make_kmer_hash("ACGT" * 30, 10)
+    idx = api.make_kmer_hash("ACGT" * 30, 10, device="cpu")
     with pytest.raises(ValueError):
         api.seq_kmer_pos(idx, "ACGT" * 20, 32)
     with pytest.raises(ValueError):
@@ -76,7 +78,8 @@ def test_kmer_pairs_matches_jax_and_refsem(k):
     rng = np.random.default_rng(70 + k)
     sa = random_str(rng, 600)
     sb = sa[100:350] + random_str(rng, 200) + sa[400:500]
-    ta, tb = api.make_kmer_hash(sa, k), api.make_kmer_hash(sb, k)
+    ta = api.make_kmer_hash(sa, k, device="cpu")
+    tb = api.make_kmer_hash(sb, k, device="cpu")
     got = api.kmer_pairs(ta, tb).numpy()
     want = rs.kmer_pair_pos(rs.make_kmer_hash(sa, k),
                             rs.make_kmer_hash(sb, k))
@@ -92,7 +95,7 @@ def test_kmer_pairs_matches_jax_and_refsem(k):
 
 
 def test_kmer_pairs_disjoint():
-    a = api.make_kmer_hash("A" * 50, 8)
-    b = api.make_kmer_hash("C" * 50, 8)
+    a = api.make_kmer_hash("A" * 50, 8, device="cpu")
+    b = api.make_kmer_hash("C" * 50, 8, device="cpu")
     assert api.kmer_pairs(a, b).shape == (0, 2)
     assert tq.kmer_pairs_total(a, b) == 0
