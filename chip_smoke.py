@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the position-index path
-and the quality-filtered counting path, end to end.
+(also through the merge sort behind KMH_MERGE_SORT=1), the quality-filtered
+counting path and the per-base-threshold entries, end to end.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -9,34 +10,48 @@ is nonzero:
 
 1. device  — needs torch.cuda; prints the card and its power limit;
 2. build   — compiles kmer_hasher_tpu_torch/csrc/*.cu with nvcc (sm_90a);
-3. kernels — B1 (encode) and B2 (quality-likelihood FSM, three
-             instantiations) against their plain PyTorch versions on the
-             card, bitwise, at the shapes the main paths launch them with;
+3. kernels — B1 (encode), B2 (quality-likelihood FSM, three
+             instantiations) and B3 (merge path: sort-round shapes at 2^26,
+             the five-key adversarial input, the count store's two-run
+             shape with the implicit payload, edge shapes) against their
+             plain PyTorch versions on the card, bitwise, at the shapes the
+             main paths launch them with;
 4. main (index) — make_kmer_hash(k=32) of a 40,000,000-base sequence,
              kmer_pos(2|8), the full pair drain, then a k=21 index and
              seq_kmer_pos with a 1,000,000-base query, with checks;
+   main (merge sort) — build_index_arrays at 2^26 windows for k=32 and
+             k=21 with KMH_MERGE_SORT=1, bitwise equal to the flag-off
+             result, and the 40,000,000-base make_kmer_hash(k=32) with its
+             table checks under the flag (B3: log2(R) launches per build);
 5. main (counting) — 64 batches x 29,696 reads x 151 bases drawn on the
              card from a 4,000,000-base genome (both strands, 0.5%
              substitutions, NovaSeq-binned qualities), k=21, min_q=20,
              exact_ll="hybrid", through the loop the file entry uses; then
-             flush, kmer_spectrum, seq_kmer_depth, with checks; then, as
-             a path of its own, count_kmers_fq_sh_rp of a 50,000-read FASTQ
-             file with a checkpoint round trip; then 4 full-width batches
-             with stress qualities, where hybrid flags reads and re-scans
-             them in f64, against exact. Kernel launches are counted per
-             path (index, counting, file), set to 0 just before each and
-             read just after;
+             flush, kmer_spectrum, seq_kmer_depth in both semantics (the
+             exact-C track also against the CPU), with checks; B3 runs once
+             per two-run merge of the store; then, as a path of its own,
+             count_kmers_fq_sh_rp of a 50,000-read FASTQ file with a
+             checkpoint round trip; then count_kmers_fq_sh and
+             count_kmers_fq of that file (the threshold path), equal to the
+             CPU's stores; then 4 full-width batches with stress qualities,
+             where hybrid flags reads and re-scans them in f64, against
+             exact. Kernel launches are counted per path (index, merge-sort
+             index, counting, file, threshold), set to 0 just before each
+             and read just after;
 6. card vs CPU — index tables for k in {16, 21, 32}; counting in all
              three likelihood modes and a two-source store, bitwise;
-7. times   — B1 and B2 vs plain, build_index_arrays, the index path, and
-             the counting rates E2E / FUSED / FSM with the share of tier
-             merges, of the fold, and the device's idle share over the
-             whole 64-batch loop.
+7. times   — B1, B2 and B3 vs plain (B3 also beside torch.sort of the
+             concatenated keys, the one library call that computes a
+             merge), build_index_arrays with the flag off and on, the index
+             path, one threshold_scan batch, and the counting rates E2E /
+             FUSED / FSM with the share of tier merges, of the fold, and
+             the device's idle share over the whole 64-batch loop.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports neither JAX nor kmer_hasher_tpu.
 """
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -67,6 +82,13 @@ QUAL_BINS, QUAL_P = b"F:,#", (0.88, 0.08, 0.02, 0.02)  # NovaSeq RTA3
 DEPTH_AT, DEPTH_LEN = 1_000_000, 1_000_000
 FILE_READS = 50_000
 STRESS_BATCHES = 4
+# B3's shapes: a sort round of the 2^26 index build (2^11 runs of the merge
+# sort's row length, then the last round's 2 runs of 2^25), and the count
+# store's tier merge at the size of the counting cell's last merges
+SORT_N, SORT_ROWS = 1 << 26, 1 << 11
+FIVE_N = 1 << 22
+STORE_A, STORE_B = 7_000_000, 4_000_000
+SIGN = -(2 ** 63)
 KS_SCAN = (5, 16, 17, 21, 31, 32)
 VARIANTS = {  # B2's three instantiations, as cuda_scan.scan selects them
     "f32": dict(precision="fast"),
@@ -322,19 +344,30 @@ def phase_times(seq: np.ndarray, card: str):
     log(f"[times] B1 encode, k=32, 2^26 bytes: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms (CUDA events, mean of 20) | {card}")
 
-    times = []
-    build_index_arrays(x, k, SEQ_LEN)
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = build_index_arrays(x, k, SEQ_LEN)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    del out
-    med = statistics.median(times)
+    # flag off and on in turns (off, on, on, off, ...), after a warm-up
+    # of each, so the two are compared within one call on one card
+    before = os.environ.get("KMH_MERGE_SORT")
+    times = {"0": [], "1": []}
+    try:
+        for flag in ("0", "1", "0", "1", "1", "0", "0", "1", "1", "0"):
+            os.environ["KMH_MERGE_SORT"] = flag
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = build_index_arrays(x, k, SEQ_LEN)
+            torch.cuda.synchronize()
+            times[flag].append(time.perf_counter() - t0)
+            del out
+    finally:
+        if before is None:
+            del os.environ["KMH_MERGE_SORT"]
+        else:
+            os.environ["KMH_MERGE_SORT"] = before
+    med, med_on = (statistics.median(times[f][1:]) for f in ("0", "1"))
     log(f"[times] build_index_arrays, k=32, 2^26 windows: median "
-        f"{med * 1e3:.3f} ms of 5 = {L / med:,.0f} k-mers/s "
-        f"(window axis / time) | {card}")
+        f"{med * 1e3:.3f} ms of 4 = {L / med:,.0f} k-mers/s "
+        f"(window axis / time); with KMH_MERGE_SORT=1 (row sorts + 11 "
+        f"rounds of B3) median {med_on * 1e3:.3f} ms of 4 = "
+        f"{L / med_on:,.0f} k-mers/s, in turns within this call | {card}")
 
     t0 = time.perf_counter()
     idx = api.make_kmer_hash(seq, k, device="cuda")
@@ -344,6 +377,37 @@ def phase_times(seq: np.ndarray, card: str):
     log(f"[times] make_kmer_hash(k=32) of {SEQ_LEN:,} bases from host + "
         f"drain of {n:,} pair rows: {full:.3f} s (warm) | {card}")
     return ms, plain_ms
+
+
+def phase_times_merge(cases: dict, card: str):
+    """B3 per launch at the last sort round and at the store's shape,
+    beside its plain version and the one library call that computes a
+    merge of two sorted runs: ``torch.sort`` with indices of the
+    concatenated keys (what the store's tier merge was before B3; stable
+    for the sort round, whose payload is ascending within equal keys only
+    through the sort's stability)."""
+    from kmer_hasher_tpu_torch.ops import cuda_merge as b3
+
+    out = {}
+    for name, stable in (("last sort round", True), ("store", False)):
+        keys, pay, bounds = cases[name]
+        ms = cuda_ms(lambda: b3.merge(keys, pay, bounds), iters=10)
+        plain_ms = cuda_ms(lambda: b3.plain(keys, pay, bounds), iters=2,
+                           warmup=1)
+        lib_ms = cuda_ms(lambda: torch.sort(keys, stable=stable), iters=5,
+                         warmup=1)
+        n = keys.shape[0]
+        moved = n * (8 + 8 + 4 + (0 if pay is None else 4)) + 8 * len(bounds)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "rows": n, "bytes": moved}
+        lens = " + ".join(f"{int(d):,}" for d in np.diff(bounds))
+        log(f"[times] B3 merge, {name} ({lens} rows, "
+            f"{'implicit' if pay is None else '32-bit'} payload): "
+            f"kernel {ms:.4f} ms (CUDA events, mean of 10) = "
+            f"{moved / ms / 1e9:.3f} TB/s of {moved / 1e6:.1f} MB, plain "
+            f"{plain_ms:.4f} ms (mean of 2), torch.sort of the concatenated "
+            f"keys {lib_ms:.4f} ms (mean of 5) | {card}")
+    return out
 
 
 # -- the counting path ------------------------------------------------------
@@ -444,6 +508,173 @@ def phase_kernels_scan(rng) -> float:
     return worst
 
 
+def rand64(gen, n: int) -> torch.Tensor:
+    """n uniform int64 values on the card (every bit random)."""
+    hi = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
+                       device="cuda")
+    lo = torch.randint(0, 1 << 32, (n,), generator=gen, device="cuda")
+    return (hi << 32) | lo
+
+
+def merge_cases(gen, rng) -> dict:
+    """B3's inputs on the card, by name: (keys, payload or None, bounds).
+
+    Sort-round shapes carry the k = 32 index payload, (invalid << 31) |
+    position, with a tenth of the windows invalid (the all-ones key) and a
+    few real all-G k-mers sharing that key; the five-key input is the JAX
+    package's adversarial one (repeat-dominated keys, the all-ones key
+    among them); the store shape is two runs of unique keys, about half of
+    the shorter one's shared, with the implicit row-number payload."""
+    from kmer_hasher_tpu_torch.ops import merge_sort as ms
+
+    i32_min = torch.iinfo(torch.int32).min
+
+    def index_payload(n, invalid):
+        pos = torch.arange(1, n + 1, dtype=torch.int32, device="cuda")
+        return torch.where(invalid, pos | i32_min, pos)
+
+    def runs(keys, pay, rows):
+        n = keys.shape[0]
+        k, p = ms.lex_sort(keys.reshape(rows, -1), pay.reshape(rows, -1))
+        return k.reshape(-1), p.reshape(-1), np.arange(0, n + 1, n // rows)
+
+    cases = {}
+    invalid = torch.rand(SORT_N, generator=gen, device="cuda") < 0.1
+    keys = torch.where(invalid, SIGN ^ -1, rand64(gen, SORT_N))
+    keys[torch.randint(0, SORT_N, (64,), generator=gen, device="cuda")] = (
+        SIGN ^ -1)  # all-G 32-mers, valid where the draw left them so
+    pay = index_payload(SORT_N, invalid)
+    rows_len = SORT_N // SORT_ROWS
+    cases[f"sort round, {SORT_ROWS} runs of {rows_len}"] = runs(
+        keys, pay, SORT_ROWS)
+    cases["last sort round"] = runs(keys, pay, 2)
+    del keys, pay
+    five = torch.from_numpy(np.array(
+        [0, 1, 2 ** 63, 2 ** 64 - 1, 42], np.uint64).view(np.int64)
+    ).cuda() ^ SIGN
+    keys = five[torch.randint(0, 5, (FIVE_N,), generator=gen, device="cuda")]
+    pay = index_payload(FIVE_N, keys == (SIGN ^ -1))[
+        torch.randperm(FIVE_N, generator=gen, device="cuda")]
+    cases[f"five keys, {FIVE_N // rows_len} runs of {rows_len}"] = runs(
+        keys, pay, FIVE_N // rows_len)
+    cases["five keys, last round"] = runs(keys, pay, 2)
+    a = torch.unique(rand64(gen, STORE_A))
+    shared = a[torch.randperm(a.shape[0], generator=gen,
+                              device="cuda")[: STORE_B // 2]]
+    b = torch.unique(torch.cat([shared, rand64(gen, STORE_B // 2)]))
+    cases["store"] = (torch.cat([a, b]), None,
+                      np.array([0, a.shape[0], a.shape[0] + b.shape[0]]))
+    # edge shapes from the host: empty runs, runs of 1, lengths that are no
+    # multiple of the 2,048-element tile; five keys, both payload forms
+    vals = five.cpu().numpy()
+    for name, lens in (("an empty run and a run of 1", (0, 1)),
+                       ("a run and an empty run", (4097, 0)),
+                       ("ragged", (2047, 2050, 6143, 1, 0, 0, 5, 70_001))):
+        ks, ps = [], []
+        for n in lens:
+            k = rng.choice(vals, size=n)
+            q = rng.integers(0, 2 ** 32, size=n, dtype=np.uint64)
+            order = np.lexsort((q, k))
+            ks.append(k[order])
+            ps.append(q[order].astype(np.uint32))
+        keys = torch.from_numpy(np.concatenate(ks)).cuda()
+        pay = torch.from_numpy(np.concatenate(ps).view(np.int32).copy())
+        bounds = np.concatenate([[0], np.cumsum(lens)])
+        cases[f"edge: {name}"] = (keys, pay.cuda(), bounds)
+        cases[f"edge: {name}, implicit payload"] = (keys, None, bounds)
+    return cases
+
+
+def phase_kernels_merge(cases: dict) -> float:
+    """B3 against its plain version on the same CUDA tensors, bitwise:
+    merged keys and merged payload over every pair's span."""
+    from kmer_hasher_tpu_torch.ops import cuda_merge as b3
+    from kmer_hasher_tpu_torch.ops import merge_sort as ms
+
+    worst = 0.0
+    for name, (keys, pay, bounds) in cases.items():
+        got = b3.merge(keys, pay, bounds)
+        want = b3.plain(keys, pay, bounds)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        worst = max(worst, err)
+        if err:
+            raise AssertionError(f"B3 disagrees with its plain version: "
+                                 f"{name}, max_abs_err={err}")
+        if len(bounds) == 3 and keys.shape[0] > 1:
+            # one pair: the output is one sorted run, checked on its own
+            k, q = got[0], ms.unsigned_pay(got[1])
+            ok = (k[1:] > k[:-1]) | ((k[1:] == k[:-1]) & (q[1:] >= q[:-1]))
+            if not bool(ok.all()):
+                raise AssertionError(f"B3 output is not sorted: {name}")
+        del got, want
+    keys, _pay, bounds = cases["store"]
+    log(f"[kernels] B3 == plain, bitwise (merged keys and payload), on "
+        f"{len(cases)} inputs: {', '.join(cases)}; the store shape is "
+        f"{bounds[1]:,} + {bounds[2] - bounds[1]:,} unique keys, "
+        f"{keys.shape[0] - int(torch.unique(keys).shape[0]):,} of them in "
+        f"both (max_abs_err {worst})")
+    return worst
+
+
+def phase_main_merge_sort(seq: np.ndarray):
+    """The index path through the merge sort: KMH_MERGE_SORT=1 sends
+    sort_windows through phase-1 row sorts and log2(R) rounds of B3.
+    build_index_arrays at 2^26 windows for k=32 and k=21 must equal the
+    flag-off result bitwise, and make_kmer_hash(k=32) of the whole sequence
+    must pass the index checks under the flag."""
+    from kmer_hasher_tpu_torch import api
+    from kmer_hasher_tpu_torch.index.position_index import build_index_arrays
+    from kmer_hasher_tpu_torch.ops import merge_sort as ms
+
+    L = 1 << 26
+    x = torch.full((L,), ord("N"), dtype=torch.uint8, device="cuda")
+    x[:SEQ_LEN] = torch.from_numpy(seq).cuda()
+    before = os.environ.get("KMH_MERGE_SORT")
+    names = ("s_key", "s_pos", "n_valid", "starts", "seg_ids")
+    try:
+        os.environ["KMH_MERGE_SORT"] = "0"
+        off = {k: build_index_arrays(x, k, SEQ_LEN) for k in (32, 21)}
+        os.environ["KMH_MERGE_SORT"] = "1"
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on = {k: build_index_arrays(x, k, SEQ_LEN) for k in (32, 21)}
+        idx = api.make_kmer_hash(seq, 32, device="cuda")
+        tabs = api.kmer_pos(idx, 2 | 8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        if before is None:
+            del os.environ["KMH_MERGE_SORT"]
+        else:
+            os.environ["KMH_MERGE_SORT"] = before
+    for k in (32, 21):
+        for name, a, b in zip(names, on[k], off[k]):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"k={k}: {name} differs with KMH_MERGE_SORT=1")
+    check_index(idx, seq, 32)
+    if int(tabs["count"].long().sum()) != idx.n_valid:
+        raise AssertionError("flagged index: counts do not sum to n_valid")
+    if tabs["pos"].shape != (idx.n_valid, 2):
+        raise AssertionError("flagged index: pos table shape")
+    rounds = (L // ms.LT).bit_length() - 1
+    if launches[2] != 3 * rounds:
+        raise AssertionError(
+            f"the flagged builds launched B3 {launches[2]} times, want "
+            f"{rounds} per build (log2 of {L // ms.LT} runs) x 3")
+    log(f"[main] merge sort: KMH_MERGE_SORT=1, build_index_arrays at 2^26 "
+        f"windows, k=32 and k=21: s_key, s_pos, n_valid, starts, seg_ids "
+        f"bitwise equal to the flag-off build; make_kmer_hash(k=32) of "
+        f"{SEQ_LEN:,} bases + kmer_pos(2|8) pass the index checks "
+        f"(n_valid {idx.n_valid:,}); {wall:.3f} s; B3 launches "
+        f"{launches[2]} = {rounds} rounds x 3 builds (rows of {ms.LT}), "
+        f"B1 launches {launches[0]}")
+    return launches
+
+
 def make_genome(gen) -> torch.Tensor:
     """GENOME_LEN base indices 0..3 (into b"ACGT") on the card."""
     return torch.randint(0, 4, (GENOME_LEN,), generator=gen, device="cuda",
@@ -482,17 +713,39 @@ def draw_reads(genome: torch.Tensor, gen, rows: int):
 
 def reset_launches():
     from kmer_hasher_tpu_torch.ops import cuda_encode as b1
+    from kmer_hasher_tpu_torch.ops import cuda_merge as b3
     from kmer_hasher_tpu_torch.ops import cuda_scan as b2
 
     b1.encode.launches = 0
     b2.scan.launches = 0
+    b3.merge.launches = 0
 
 
 def read_launches():
+    """(B1, B2, B3) launches since the last reset."""
     from kmer_hasher_tpu_torch.ops import cuda_encode as b1
+    from kmer_hasher_tpu_torch.ops import cuda_merge as b3
     from kmer_hasher_tpu_torch.ops import cuda_scan as b2
 
-    return b1.encode.launches, b2.scan.launches
+    return b1.encode.launches, b2.scan.launches, b3.merge.launches
+
+
+def two_run_merges(store) -> int:
+    """How often the store merged exactly two runs: its tier merges and
+    its two-run folds. B3 runs once for each."""
+    return store.timings["tier_merges"] + store.timings["fold_merges"]
+
+
+def store_on_cpu(store):
+    """A CPU store with the card store's base table."""
+    from kmer_hasher_tpu_torch import api
+
+    store.flush()
+    c = api.CountStore(store.k, counts_n=store.counts_n, mode=store.mode,
+                       prefix_bits=store.prefix_bits,
+                       suffix_bits=store.suffix_bits, device="cpu")
+    c.keys, c.cnt = store.keys.cpu(), store.cnt.cpu()
+    return c
 
 
 def write_fastq(path: Path, batches, n_reads: int) -> None:
@@ -509,10 +762,27 @@ def write_fastq(path: Path, batches, n_reads: int) -> None:
                 return
 
 
-def phase_main_counting(genome: torch.Tensor, batches):
+def depth_probe_c(stretch: torch.Tensor, k: int) -> torch.Tensor:
+    """The depth stretch with N gaps for the exact-C track: single Ns, a
+    short run, an exactly-k region between two Ns (the next region starts
+    with a stale register), and 300 random Ns over the last tenth."""
+    x = stretch.clone()
+    n = x.shape[0]
+    at = [n // 5, 2 * n // 5, 2 * n // 5 + 1, 2 * n // 5 + 2,
+          3 * n // 5, 3 * n // 5 + k + 1]
+    x[torch.tensor(at, device=x.device)] = ord("N")
+    g = torch.Generator(device=x.device)
+    g.manual_seed(SEED)
+    x[torch.randint(n - n // 10, n, (300,), generator=g,
+                    device=x.device)] = ord("N")
+    return x
+
+
+def phase_main_counting(genome: torch.Tensor, batches, tmp: Path):
     """The user's counting path on the card: the batch loop of
-    count_kmers_fq_sh_rp over device-staged reads, flush, spectrum, depth;
-    then the file entry with a checkpoint round trip."""
+    count_kmers_fq_sh_rp over device-staged reads, flush, spectrum, depth
+    in both semantics; then the file entry with a checkpoint round trip.
+    Writes the FASTQ file into ``tmp`` and returns its path too."""
     from kmer_hasher_tpu_torch import api, counting
     from kmer_hasher_tpu_torch.utils import checkpoint
 
@@ -532,8 +802,10 @@ def phase_main_counting(genome: torch.Tensor, batches):
     stretch = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device="cuda")[
         genome[DEPTH_AT: DEPTH_AT + DEPTH_LEN].long()]
     depth = api.seq_kmer_depth(store, stretch, k)
+    stretch_c = depth_probe_c(stretch, k)
+    depth_c = api.seq_kmer_depth(store, stretch_c, k, semantics="c")
     torch.cuda.synchronize()
-    b1_n, b2_n = read_launches()
+    b1_n, b2_n, b3_n = read_launches()
 
     total = int(store.total_added.sum())
     if store.device.type != "cuda" or store.keys.device.type != "cuda":
@@ -561,10 +833,27 @@ def phase_main_counting(genome: torch.Tensor, batches):
     med = float(windows.float().median())
     if not 0.6 * cover <= med <= 1.2 * cover:
         raise AssertionError(f"median depth {med} vs coverage {cover:.1f}")
-    if b1_n < 1 or b2_n < 1:
-        raise AssertionError(
-            f"the counting path launched B1 {b1_n} and B2 {b2_n} times")
+    # exact-C depth: before the first N column c holds window c+1 (the
+    # reference's one-column shift); the whole track equals the CPU's
+    first_n = DEPTH_LEN // 5
+    if not torch.equal(depth_c[:, : first_n - k],
+                       depth[:, 1: first_n - k + 1]):
+        raise AssertionError("exact-C depth is not the shifted track")
+    cpu_store = store_on_cpu(store)
+    if not torch.equal(
+            depth_c.cpu(),
+            api.seq_kmer_depth(cpu_store, stretch_c.cpu(), k, semantics="c")):
+        raise AssertionError("exact-C depth differs card vs CPU")
+    if not torch.equal(depth.cpu(),
+                       api.seq_kmer_depth(cpu_store, stretch.cpu(), k)):
+        raise AssertionError("depth differs card vs CPU")
+    del cpu_store
     tm = store.timings
+    if b1_n < 1 or b2_n < 1 or b3_n < 1 or b3_n != two_run_merges(store):
+        raise AssertionError(
+            f"the counting path launched B1 {b1_n}, B2 {b2_n} and B3 "
+            f"{b3_n} times; the store merged two runs "
+            f"{two_run_merges(store)} times")
     log(f"[main] counting: {len(batches)} batches x {ROWS:,} reads x "
         f"{READ_LEN} bases = {n_reads:,} reads, k={k}, min_q={MIN_Q}, "
         f"hybrid: {total:,} observations kept of "
@@ -573,44 +862,99 @@ def phase_main_counting(genome: torch.Tensor, batches):
         f"{tm['tier_merges']} tier merges, {wall:.3f} s")
     log(f"[main] counting: spectrum(255) sums to n_unique, mode {mode} at "
         f"kept coverage {cover:.1f}; depth over {DEPTH_LEN:,} bases has no "
-        f"NA, median {med:.0f}; B1 launches {b1_n}, B2 launches {b2_n}")
+        f"NA, median {med:.0f}; exact-C depth over the same stretch with "
+        f"{int((stretch_c == ord('N')).sum())} Ns is the one-column-shifted "
+        f"track before the first N and equals the CPU's everywhere "
+        f"({int((depth_c != NA).sum()):,} columns written); B1 launches "
+        f"{b1_n}, B2 launches {b2_n}, B3 launches {b3_n} = "
+        f"{tm['tier_merges']} tier merges + {tm['fold_merges']} two-run "
+        f"fold")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        fq = Path(tmp) / "reads.fq"
-        write_fastq(fq, batches, FILE_READS)
-        # the file entry is a path of its own: its launches are counted
-        # apart, before the check below runs the kernel again
-        reset_launches()
-        t0 = time.perf_counter()
-        st = api.count_kmers_fq_sh_rp(str(fq), k=k, min_q=MIN_Q)
-        torch.cuda.synchronize()
-        t_file = time.perf_counter() - t0
-        b1_file, b2_file = read_launches()
-        if b2_file < 1:
-            raise AssertionError("the file entry never launched B2")
-        if st.device.type != "cuda":
-            raise AssertionError("the file entry did not run on the card")
-        want = api.CountStore(k)
-        cut = [tuple(a[:FILE_READS - i * ROWS] for a in b)
-               for i, b in enumerate(batches[: -(-FILE_READS // ROWS)])]
-        counting.count_batches(want, cut, k, min_q=MIN_Q, exact_ll=True)
-        ck = Path(tmp) / "store.npz"
-        checkpoint.save_count_store(st, ck)
-        back = checkpoint.load_count_store(ck)
-        for other, what in ((want, "the staged batches"),
-                            (back, "its checkpoint")):
-            if not (torch.equal(st.keys, other.keys)
-                    and torch.equal(st.cnt, other.cnt)
-                    and (st.total_added == other.total_added).all()):
-                raise AssertionError(f"file count differs from {what}")
+    fq = tmp / "reads.fq"
+    write_fastq(fq, batches, FILE_READS)
+    # the file entry is a path of its own: its launches are counted
+    # apart, before the check below runs the kernel again
+    reset_launches()
+    t0 = time.perf_counter()
+    st = api.count_kmers_fq_sh_rp(str(fq), k=k, min_q=MIN_Q)
+    torch.cuda.synchronize()
+    t_file = time.perf_counter() - t0
+    b1_file, b2_file, b3_file = read_launches()
+    if b2_file < 1 or b3_file != two_run_merges(st):
+        raise AssertionError(
+            f"the file entry launched B2 {b2_file} and B3 {b3_file} times; "
+            f"its store merged two runs {two_run_merges(st)} times")
+    if st.device.type != "cuda":
+        raise AssertionError("the file entry did not run on the card")
+    want = api.CountStore(k)
+    cut = [tuple(a[:FILE_READS - i * ROWS] for a in b)
+           for i, b in enumerate(batches[: -(-FILE_READS // ROWS)])]
+    counting.count_batches(want, cut, k, min_q=MIN_Q, exact_ll=True)
+    ck = tmp / "store.npz"
+    checkpoint.save_count_store(st, ck)
+    back = checkpoint.load_count_store(ck)
+    for other, what in ((want, "the staged batches"),
+                        (back, "its checkpoint")):
+        if not (torch.equal(st.keys, other.keys)
+                and torch.equal(st.cnt, other.cnt)
+                and (st.total_added == other.total_added).all()):
+            raise AssertionError(f"file count differs from {what}")
     log(f"[main] count_kmers_fq_sh_rp of a {FILE_READS:,}-read FASTQ file "
         f"(pure-Python reader, pinned copies): {st.n_unique:,} distinct, "
         f"equal to the same reads staged on the card; checkpoint round "
         f"trip exact; {t_file:.3f} s; B1 launches {b1_file}, B2 launches "
-        f"{b2_file}")
-    launches = {"counting": (b1_n, b2_n), "file": (b1_file, b2_file)}
-    return launches, {"wall": wall, "timings": dict(tm), "n_reads": n_reads,
-                      "flagged": flagged}
+        f"{b2_file}, B3 launches {b3_file}")
+    launches = {"counting": (b1_n, b2_n, b3_n),
+                "file": (b1_file, b2_file, b3_file)}
+    return launches, fq, {"wall": wall, "timings": dict(tm),
+                          "n_reads": n_reads, "flagged": flagged}
+
+
+def phase_main_threshold(fq: Path):
+    """The per-base-threshold entries on the card: count_kmers_fq_sh and
+    count_kmers_fq (kmer_tree store) of the FASTQ file, each equal to the
+    same call on the CPU, bitwise."""
+    from kmer_hasher_tpu_torch import api
+
+    k = K_COUNT
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = {name: getattr(api, name)(str(fq), k=k, min_q=MIN_Q)
+            for name in ("count_kmers_fq_sh", "count_kmers_fq")}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    merges = sum(two_run_merges(st) for st in card.values())
+    if launches[2] < 1 or launches[2] != merges:
+        raise AssertionError(
+            f"the threshold entries launched B3 {launches[2]} times; their "
+            f"stores merged two runs {merges} times")
+    for name, g in card.items():
+        if g.device.type != "cuda" or g.n_unique < 1:
+            raise AssertionError(f"{name} did not count on the card")
+        c = getattr(api, name)(str(fq), k=k, min_q=MIN_Q, device="cpu")
+        if not (torch.equal(g.keys.cpu(), c.keys)
+                and torch.equal(g.cnt.cpu(), c.cnt)
+                and (g.total_added == c.total_added).all()
+                and (api.kmer_spectrum(g, 255)
+                     == api.kmer_spectrum(c, 255)).all()):
+            raise AssertionError(f"{name}: card and CPU differ")
+    sh, kt = card["count_kmers_fq_sh"], card["count_kmers_fq"]
+    if not (sh.mode == "sh" and kt.mode == "ktree"
+            and torch.equal(sh.keys, kt.keys)
+            and api.kmer_spectrum(kt, 255)[0] > api.kmer_spectrum(sh, 255)[0]):
+        raise AssertionError("the kmer_tree store does not hold the same "
+                             "k-mers with its blocks' zero cells on top")
+    log(f"[main] threshold: count_kmers_fq_sh and count_kmers_fq of the "
+        f"{FILE_READS:,}-read FASTQ file, k={k}, min_q={MIN_Q}: "
+        f"{int(sh.total_added.sum()):,} observations, {sh.n_unique:,} "
+        f"distinct; keys, counts, total_added and spectrum(255) equal to "
+        f"the CPU's, bitwise; the kmer_tree spectrum adds "
+        f"{api.kmer_spectrum(kt, 255)[0]:,.0f} zero cells; {wall:.3f} s for "
+        f"both; B1 launches {launches[0]}, B2 launches {launches[1]}, B3 "
+        f"launches {launches[2]} (one per two-run merge)")
+    return launches
 
 
 def phase_hybrid_full_width(rng) -> int:
@@ -775,6 +1119,15 @@ def phase_times_counting(batches, card: str, main_stats: dict):
             f"kernel {ms[name]:.4f} ms (CUDA events, mean of 20), plain "
             f"{plain_ms[name]:.4f} ms (mean of 2) | {card}")
 
+    from kmer_hasher_tpu_torch.ops import scan_iter
+
+    thr_ms = cuda_ms(lambda: scan_iter.threshold_scan(
+        seq, qual, lengths, k, 33 + MIN_Q), iters=2, warmup=1)
+    log(f"[times] threshold_scan (a loop over positions in plain PyTorch; "
+        f"the JAX package's is a lax.scan, not a kernel), k={k}, "
+        f"[{ROWS} x {READ_LEN}]: {thr_ms:.4f} ms per batch (CUDA events, "
+        f"mean of 2) | {card}")
+
     n_reads = len(batches) * ROWS
 
     def rate(fn):
@@ -819,9 +1172,10 @@ def phase_times_counting(batches, card: str, main_stats: dict):
         f"for {n_reads:,} reads = {n_reads / t:,.0f} reads/s (best of 3: "
         f"{', '.join(f'{r[0]:.3f}' for r in runs)} s); tier merges "
         f"{tm['tier_merge_s']:.3f} s = {tm['tier_merge_s'] / t:.1%} of the "
-        f"wall ({tm['tier_merges']} merges, {tm['tier_merge_rows']:,} rows "
-        f"in), final fold {tm['fold_s']:.3f} s = {tm['fold_s'] / t:.1%} "
-        f"| {card}")
+        f"wall ({tm['tier_merges']} merges through B3, "
+        f"{tm['tier_merge_rows']:,} rows in), final fold {tm['fold_s']:.3f} "
+        f"s = {tm['fold_s'] / t:.1%} ({tm['fold_merges']} of "
+        f"{tm['folds']} a two-run merge through B3) | {card}")
     def window():
         st = api.CountStore(k)
         counting.count_batches(st, batches, k, min_q=MIN_Q, exact_ll="hybrid")
@@ -844,38 +1198,58 @@ def bound(bytes_moved: float, ops: float):
     return max(by, op) * 1e3, "bytes" if by >= op else "operations"
 
 
+PATHS = ("index", "merge_sort_index", "counting", "file", "threshold")
+
+
 def main() -> None:
     name, card = phase_device()
     phase_build()
     rng = np.random.default_rng(SEED)
     worst_b1 = phase_kernels(rng)
     worst_b2 = phase_kernels_scan(rng)
+    # B3's inputs draw from generators of their own, so the sequence and
+    # the reads below stay what the seed has always made them
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    cases = merge_cases(gen, np.random.default_rng(SEED + 3))
+    worst_b3 = phase_kernels_merge(cases)
+    cases = {n: cases[n] for n in ("last sort round", "store")}
     seq = make_sequence(rng, SEQ_LEN)
     reset_launches()
-    b1_index, _ = phase_main(seq)
-    gen = torch.Generator(device="cuda")
+    _, t_k32 = phase_main(seq)
+    launches = {"index": read_launches()}
+    if launches["index"][2]:
+        raise AssertionError("the index path launched B3 with the flag off")
+    launches["merge_sort_index"] = phase_main_merge_sort(seq)
     gen.manual_seed(SEED)
     genome = make_genome(gen)
     batches = [draw_reads(genome, gen, ROWS) for _ in range(N_BATCHES)]
     torch.cuda.synchronize()
-    launches, stats = phase_main_counting(genome, batches)
-    launches["index"] = (b1_index, 0)
-    by_path = [{p: launches[p][i] for p in ("index", "counting", "file")}
-               for i in (0, 1)]
+    with tempfile.TemporaryDirectory() as tmp:
+        more, fq, stats = phase_main_counting(genome, batches, Path(tmp))
+        launches.update(more)
+        launches["threshold"] = phase_main_threshold(fq)
+    by_path = [{p: launches[p][i] for p in PATHS} for i in (0, 1, 2)]
     swept = phase_hybrid_full_width(rng)
     phase_card_vs_cpu(seq)
     phase_card_vs_cpu_counting(genome, batches)
     b1_ms, b1_plain = phase_times(seq, card)
+    b3_times = phase_times_merge(cases, card)
+    del cases
     b2_ms, b2_plain = phase_times_counting(batches, card, stats)
     # least time for the same work: every input byte read once, every output
     # byte written once; B1 does ~4 integer ops per base of each window, B2
-    # ~60 float and integer ops per (read, position)
+    # ~60 float and integer ops per (read, position), B3 about log2(rows) +
+    # 13 comparisons per row (two binary searches and the serial merge)
     n1 = 1 << 26
     b1_bound = bound(n1 * (1 + 8 + 1) + 4, n1 * 32 * 4)
     n2 = ROWS * READ_LEN
     b2_bound = bound(n2 * (2 + 1 + 8 + 8) + ROWS * (4 + 1) + 256 * 4,
                      n2 * 60)
+    b3_bound = {shape: bound(t["bytes"], t["rows"] * (
+        int(t["rows"]).bit_length() + 13)) for shape, t in b3_times.items()}
     main_variant = "f32+flags"
+    main_shape = "store"  # what the counting path gives B3
     log(json.dumps({"kernels": [{
         "name": "B1 encode",
         "route": "cuda",
@@ -906,6 +1280,23 @@ def main() -> None:
         "instantiation": main_variant,
         "ms_by_instantiation": b2_ms,
         "plain_ms_by_instantiation": b2_plain,
+    }, {
+        "name": "B3 merge_path",
+        "route": "cuda",
+        "source": "kmer_hasher_tpu_torch/csrc/merge_path.cu",
+        "replaces": "kmer_hasher_tpu/ops/merge_sort.py:260",
+        "launches": by_path[2]["counting"],
+        "launches_by_path": by_path[2],
+        "max_abs_err": worst_b3,
+        "ms": b3_times[main_shape]["ms"],
+        "plain_ms": b3_times[main_shape]["plain_ms"],
+        "bound_ms": b3_bound[main_shape][0],
+        "bound_by": b3_bound[main_shape][1],
+        "library_ms": b3_times[main_shape]["library_ms"],
+        "shape": main_shape,
+        "by_shape": {shape: dict(t, bound_ms=b3_bound[shape][0],
+                                 bound_by=b3_bound[shape][1])
+                     for shape, t in b3_times.items()},
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,6 +7,8 @@ kmer.pos(ptr, opt.flag)     -> kmer_pos(index, opt_flag)
 seq.kmer.pos(ptr, seq, k)   -> seq_kmer_pos(index, seq, k)
 kmer.pairs(a, b)            -> kmer_pairs(a, b)
 count.kmers(seq, params)    -> count_kmers(seqs, k, source, source_n, store)
+count.kmers.fq(file, ...)   -> count_kmers_fq(file, k, min_q, ...)
+count.kmers.fq.sh(file,...) -> count_kmers_fq_sh(file, k, min_q, ...)
 count.kmers.fq.sh.rp(...)   -> count_kmers_fq_sh_rp(file, ...)  [flagship]
 seq.kmer.depth.sh(ptr,s,k)  -> seq_kmer_depth(store, seq, k)
 kmer.spec.kt/sh(ptr, max)   -> kmer_spectrum(store, max_count)
@@ -15,10 +17,8 @@ kmer.spec.sh.n(...)         -> kmer_spectrum_n(store, max_count, comb, ...)
 Every entry that builds something takes a ``device`` and runs on the card
 (``"cuda"``) unless the caller asks for ``"cpu"``; a CUDA device with no
 card raises. Tables, query rows, count rows and depth tracks come back as
-tensors on that device; spectra are small float64 numpy arrays.
-
-Still to come: the per-base-threshold entries count.kmers.fq and
-count.kmers.fq.sh (``count_kmers_fq``, ``count_kmers_fq_sh``).
+tensors on that device; spectra are small float64 numpy arrays. Every
+name the JAX package's ``api`` exports is exported here.
 """
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .counting import count_kmers, count_kmers_fq_sh_rp, seq_kmer_depth
+from .counting import (count_kmers, count_kmers_fq, count_kmers_fq_sh,
+                       count_kmers_fq_sh_rp, seq_kmer_depth)
 from .index import CountStore, KmerIndex
 from .index.query import (iter_kmer_pairs_chunks, iter_seq_kmer_pos_chunks,
                           kmer_pairs, seq_kmer_pos)
@@ -42,6 +43,8 @@ __all__ = [
     "kmer_pairs",
     "iter_kmer_pairs_chunks",
     "count_kmers",
+    "count_kmers_fq",
+    "count_kmers_fq_sh",
     "count_kmers_fq_sh_rp",
     "seq_kmer_depth",
     "kmer_spectrum",

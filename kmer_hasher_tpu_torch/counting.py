@@ -8,9 +8,11 @@ position-parallel encoder (kernel B1), are canonicalised where the
 reference canonicalises, and merge into a :class:`CountStore`.
 
 Ported: ``count_kmers``, the flagship ``count_kmers_fq_sh_rp`` on one
-device and ``seq_kmer_depth(semantics="intent")``. Still to come: the
-per-base-threshold entries (``count_kmers_fq``, ``count_kmers_fq_sh``),
-``semantics="c"`` depth, the packed upload forms and ``mesh=``.
+device, the per-base-threshold entries ``count_kmers_fq`` (kmer_tree
+store) and ``count_kmers_fq_sh`` over ``ops.scan_iter.threshold_scan``, and
+``seq_kmer_depth`` in both semantics. Every store they fill merges its
+tiers through kernel B3. Still to come: ``budget_semantics="drop"`` and
+spill (the store refuses both), the packed upload forms and ``mesh=``.
 """
 from __future__ import annotations
 
@@ -22,9 +24,11 @@ import torch
 
 from .index import count_store as cs
 from .index.count_store import CountStore
+from .index.position_index import as_sequence
 from .io.fastx import iter_fastx, pad_records
 from .ops import cuda_scan
 from .ops import encode as enc
+from .ops import scan_iter as si
 from .qll import Q_TO_LL
 
 MAX_K = 32
@@ -327,6 +331,104 @@ def count_batches(store: CountStore, batches: Iterable, k: int,
     return store.flush()
 
 
+def _fused_threshold_batch(seq: torch.Tensor, qual: torch.Tensor,
+                           lengths: torch.Tensor, has_qual: torch.Tensor,
+                           k: int, counts_n: int, min_q_char: int,
+                           with_q: bool, with_noq: bool,
+                           n_win: Optional[int] = None):
+    """The batch pipeline of the per-base-threshold entries on the tensors'
+    device: ``threshold_scan`` over the rows with qualities (``with_q``)
+    and, ungated, over those without (``with_noq``) -> canonical
+    min(fwd, rc) -> sort + segment-reduce -> (run_keys, run_cnt, n_obs) as
+    ``CountStore.add_run`` takes them, source 0. ``n_win`` trims the
+    window axis as in :func:`_fused_rp_batch`."""
+    obs = []
+    for wanted, gated, rows in ((with_q, True, has_qual),
+                                (with_noq, False, ~has_qual)):
+        if not wanted:
+            continue
+        emit, fwd, rc = si.threshold_scan(
+            seq, qual, torch.where(rows, lengths, 0), k, min_q_char,
+            has_qual=gated)
+        # windows are END-aligned like ll_scan's: keep [k-1, k-1 + n_win)
+        end = emit.shape[1] if n_win is None else k - 1 + max(
+            1, min(n_win, emit.shape[1] - k + 1))
+        emit = emit[:, k - 1:end] & rows[:, None]
+        key = enc.canonical_windows(fwd, rc)[:, k - 1:end]
+        obs.append(key[emit])
+    keys = enc.sortable_key(torch.cat(obs))
+    run_keys, run_cnt = cs.build_run(keys, counts_n, 0)
+    return run_keys, run_cnt, int(keys.shape[0])
+
+
+def _count_fastq_threshold(path, k: int, min_q: int, store: CountStore,
+                           max_reads: Optional[int],
+                           report_every: Optional[int] = None) -> CountStore:
+    """Shared body of count.kmers.fq / count.kmers.fq.sh: per-base-threshold
+    iterator, canonical min(fwd, rc) (src/kmer_hash.c:618-806)."""
+    min_q_char = 33 + int(min_q)  # '!' + q, src/kmer_hash.c:633
+    meter = _progress(report_every, f"count_fq[{path}]")
+    for (seq, qual, lengths, has_qual), len_h, hq_h in _device_batches(
+            _iter_file_batches(path, max_reads), store.device):
+        with_q = bool(hq_h.any())
+        with_noq = bool((~hq_h & (len_h > 0)).any())
+        if not (with_q or with_noq):
+            continue
+        run_keys, run_cnt, n_obs = _fused_threshold_batch(
+            seq, qual, lengths, has_qual, k, store.counts_n, min_q_char,
+            with_q, with_noq, n_win=win_bucket(len_h.max(initial=1), k))
+        store.add_run(run_keys, run_cnt, n_obs)
+        if meter:
+            meter.update(int((len_h > 0).sum()),
+                         distinct_kmers=lambda: store.peek_n_unique())
+    return store.flush()
+
+
+def count_kmers_fq(path, k: int, min_q: int = 0, prefix_bits: int = 16,
+                   max_mem_gb: Optional[int] = None,
+                   max_reads: Optional[int] = None,
+                   store: Optional[CountStore] = None,
+                   report_every: Optional[int] = None,
+                   budget_semantics: str = "error",
+                   device="cuda") -> CountStore:
+    """``count.kmers.fq`` (src/kmer_hash.c:618-711): kmer_tree-backed
+    canonical counting — spectra include the zero cells of allocated prefix
+    blocks; optional soft memory budget (src/kmer_tree.c:57-67), which
+    raises MemoryError past it. ``budget_semantics="drop"`` (the
+    reference's silent drop) is not ported yet: the store refuses it.
+    ``device`` places a new store; a given ``store`` keeps its own."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError("k must be a positive integer less than 1+MAX_K")
+    if store is None:
+        pb, sb = derive_prefix_suffix_bits(k, prefix_bits)
+        store = CountStore(
+            k, counts_n=1, prefix_bits=pb, suffix_bits=sb, mode="ktree",
+            max_size_bytes=(max_mem_gb << 30) if max_mem_gb else None,
+            budget_semantics=budget_semantics, device=device)
+    return _count_fastq_threshold(path, k, min_q, store, max_reads,
+                                  report_every)
+
+
+def count_kmers_fq_sh(path, k: int, min_q: int = 0, prefix_bits: int = 16,
+                      max_mem_gb: Optional[int] = None,
+                      max_reads: Optional[int] = None,
+                      store: Optional[CountStore] = None,
+                      report_every: Optional[int] = None,
+                      device="cuda") -> CountStore:
+    """``count.kmers.fq.sh`` (src/kmer_hash.c:715-806): suffix_hash-backed
+    variant — spectra over present k-mers only. ``max_mem_gb`` is accepted
+    for API parity. ``device`` places a new store; a given ``store`` keeps
+    its own."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError("k must be a positive integer less than 1+MAX_K")
+    if store is None:
+        pb, sb = derive_prefix_suffix_bits(k, prefix_bits)
+        store = CountStore(k, counts_n=1, prefix_bits=pb, suffix_bits=sb,
+                           mode="sh", device=device)
+    return _count_fastq_threshold(path, k, min_q, store, max_reads,
+                                  report_every)
+
+
 def count_kmers_fq_sh_rp(path, k: int, prefix_bits: int = 20,
                          min_q: int = 20, n_shards: int = 1,
                          max_reads: Optional[int] = None,
@@ -445,20 +547,20 @@ def seq_kmer_depth(store: CountStore, seq, k: int,
 
     ``semantics="intent"`` deviates deliberately from the reference, as the
     JAX package's default does: windows overlapping N are NA, and counts
-    are window-start-aligned. ``semantics="c"`` (the reference byte for
-    byte) is not ported yet."""
+    are window-start-aligned. ``semantics="c"`` is the reference byte for
+    byte: the one-column shift, the stale-register windows across N gaps
+    after exactly-k regions, and the partial-window write at the end of the
+    sequence (see :func:`_seq_kmer_depth_c`)."""
     if store.k != k:
         raise ValueError("Receieved error from seq_kmer_counts: k mismatch")
-    if semantics == "c":
-        raise NotImplementedError("semantics='c' depth is not ported yet")
-    if semantics != "intent":
+    if semantics not in ("intent", "c"):
         raise ValueError(f"unknown semantics {semantics!r}")
-    if isinstance(seq, str):
-        seq = seq.encode()
-    if isinstance(seq, (bytes, bytearray)):
-        seq = np.frombuffer(bytes(seq), np.uint8).copy()
+    if semantics == "c":  # its planner reads the sequence on the host
+        if isinstance(seq, torch.Tensor):
+            seq = seq.cpu().numpy()
+        return _seq_kmer_depth_c(store, as_sequence(seq), k)
     if not isinstance(seq, torch.Tensor):
-        seq = torch.from_numpy(np.asarray(seq, np.uint8))
+        seq = torch.from_numpy(as_sequence(seq))
     x = seq.to(store.device, torch.uint8).contiguous()
     if x.dim() != 1:
         raise ValueError("seq must be a single sequence")
@@ -470,3 +572,144 @@ def seq_kmer_depth(store: CountStore, seq, k: int,
     key, valid = enc.encode_stream(x, k, L, canonical=True)
     rows = store.lookup(key)  # [L, counts_n]
     return torch.where(valid[None, :], rows.T, out)
+
+
+def _plan_depth_c(seq: np.ndarray, k: int):
+    """The host planner of the exact-C depth track, O(#regions) numpy.
+
+    The C loop is sequential, but its writes decompose by maximal non-N
+    region into three sources:
+
+    * a build-completing region (len >= k) writes column ``s`` = window(s),
+      then roll-writes column ``c`` = window(c+1): plain windows of the
+      sequence;
+    * a region entered with a STALE register (the region right after an
+      exactly-k build) mixes up to k-1 pre-gap bases into its first
+      windows: the windows of a (previous k bases ++ this region) junction
+      snippet;
+    * an init() that runs off the end writes the partial register's count
+      at column n-k.
+
+    Returns (cols, src_o, jrow, jt, junctions, partial): per written column
+    its source — ``jrow >= 0``: window ``jt`` of junction snippet ``jrow``;
+    else ``src_o >= 0``: window ``src_o`` of the sequence; else
+    (``src_o == -2``) the end-of-sequence partial k-mer ``partial`` (a raw
+    pattern as a Python int, or None); ``junctions`` lists (previous
+    region's start, this region's start, its length). Columns ascend, so
+    none is written twice."""
+    n = int(seq.shape[0])
+    isn = (seq | np.uint8(0x20)) == np.uint8(ord("n"))
+    d = np.diff((~isn).astype(np.int8), prepend=np.int8(0),
+                append=np.int8(0))
+    r_starts = np.flatnonzero(d == 1)
+    r_ends = np.flatnonzero(d == -1)  # exclusive
+    blocks: list = []  # (cols, src_o, jrow, jt) array blocks
+
+    def emit(cols, src_o, jrow, jt):
+        blocks.append(tuple(np.asarray(a, np.int64)
+                            for a in (cols, src_o, jrow, jt)))
+
+    junctions: list = []
+    stale = False
+    last_active_end = -1  # end of the last build/stale-rolled region
+    last_active_r = -1
+    m = len(r_starts)
+    for r in range(m):
+        s, e = int(r_starts[r]), int(r_ends[r])
+        Lr = e - s
+        if stale:
+            stale = False
+            last_active_end, last_active_r = e, r
+            jrow = len(junctions)
+            junctions.append((int(r_starts[r - 1]), s, Lr))
+            t = np.arange(min(Lr, k - 1))  # mixed-register steps
+            c = s + t - k
+            keep = c >= 0
+            nkeep = int(keep.sum())
+            emit(c[keep], np.full(nkeep, -1), np.full(nkeep, jrow),
+                 (t + 1)[keep])
+            c = s + np.arange(k - 1, Lr) - k  # the register is pure again
+            c = c[c >= 0]
+            emit(c, c + 1, np.full(c.shape[0], -1), np.zeros(c.shape[0]))
+            # the roll ended at N (or the end); the next region rebuilds
+        elif Lr >= k:
+            last_active_end, last_active_r = e, r
+            if Lr == k:
+                emit([s], [s], [-1], [0])  # the rebuild's write survives
+                stale = True  # seq[s+k] is N (or the end)
+            else:
+                c = np.arange(s, s + Lr - k)  # roll: col c = window(c+1)
+                emit(c, c + 1, np.full(c.shape[0], -1),
+                     np.zeros(c.shape[0]))
+        # else: a short region in init mode, consumed and reset: invisible
+
+    partial = None
+    if last_active_end == n:
+        pass  # rolling or build ended exactly at the end: no write
+    elif stale and last_active_r == m - 1:
+        pass  # exactly-k build, then Ns to the end: skip_n leaves the loop
+    else:
+        # a rebuild's init scanned past last_active_end and hit the end:
+        # its register holds the LAST region's bases (reset at each earlier
+        # short region), or nothing if only Ns remain
+        tail = seq[:0]
+        if m and last_active_r < m - 1:
+            tail = seq[int(r_starts[-1]): int(r_ends[-1])]
+        off_f = off_r = 0
+        for b in tail.tolist():
+            code = (b >> 1) & 3
+            off_f = ((off_f << 2) | code) & 0xFFFFFFFFFFFFFFFF
+            off_r = (off_r >> 2) | (((code + 2) % 4) << 62)
+        mask = (1 << (2 * k)) - 1
+        partial = min(off_f & mask, off_r >> (64 - 2 * k))
+        emit([n - k], [-2], [-1], [0])
+    if not blocks:
+        z = np.zeros(0, np.int64)
+        return z, z, z, z, junctions, partial
+    cols, src_o, jrow, jt = (np.concatenate(a) for a in zip(*blocks))
+    return cols, src_o, jrow, jt, junctions, partial
+
+
+def _seq_kmer_depth_c(store: CountStore, seq: np.ndarray, k: int
+                      ) -> torch.Tensor:
+    """Exact-C depth track (src/kmer_reader.c:155-194; bit parity with the
+    JAX package's ``_seq_kmer_depth_c``): :func:`_plan_depth_c` on the
+    host, then two batched encodes (the sequence's own windows and the
+    [J, 2k-1] junction snippets; kernel B1 on the card), ONE
+    ``store.lookup`` and one scatter on the store's device."""
+    dev = store.device
+    n = int(seq.shape[0])
+    out = torch.full((store.counts_n, n), _NA, dtype=torch.int32, device=dev)
+    if n < k:
+        # the C underflows its output buffer here; this returns all-NA
+        return out
+    cols, src_o, jrow, jt, junctions, partial = _plan_depth_c(seq, k)
+    if cols.size == 0:
+        return out
+    # a copy: the caller's array may be read-only (np.frombuffer)
+    key_o, _v = enc.encode_stream(torch.from_numpy(seq.copy()).to(dev), k, n,
+                                  canonical=True)
+    q = torch.zeros(cols.shape[0], dtype=torch.int64, device=dev)
+    mj = jrow >= 0
+    if junctions:
+        W = 2 * k - 1
+        rows = np.full((len(junctions), W), ord("N"), np.uint8)
+        for ji, (ps, cur, cl) in enumerate(junctions):
+            rows[ji, :k] = seq[ps: ps + k]
+            take = min(cl, k - 1)
+            rows[ji, k: k + take] = seq[cur: cur + take]
+        key_j, _v = enc.encode_stream(
+            torch.from_numpy(rows).to(dev), k,
+            torch.full((len(junctions),), W, dtype=torch.int64, device=dev),
+            canonical=True)
+        q[torch.from_numpy(mj).to(dev)] = key_j[
+            torch.from_numpy(jrow[mj]).to(dev),
+            torch.from_numpy(jt[mj]).to(dev)]
+    mo = ~mj & (src_o >= 0)
+    q[torch.from_numpy(mo).to(dev)] = key_o[
+        torch.from_numpy(src_o[mo]).to(dev)]
+    if partial is not None:  # the raw pattern as a signed int64
+        q[torch.from_numpy(~mj & (src_o == -2)).to(dev)] = (
+            partial - (1 << 64) if partial >= 1 << 63 else partial)
+    out[:, torch.from_numpy(cols).to(dev)] = store.lookup(q).T
+    return out

@@ -20,9 +20,13 @@ no shadow row, no key-only form and no deferred trim. The price is one
 host sync per run built or merged, where the run's length is read back.
 
 Keys are ``ops.encode.sortable_key`` of the raw int64 patterns, so their
-signed order is the unsigned order of the k-mers. A tier merge is concat +
-``torch.sort`` + neighbour add (each key occurs at most twice); the
-hand-written merge of two sorted runs takes its place in a later change.
+signed order is the unsigned order of the k-mers. A merge of two runs — a
+tier merge, or a fold of exactly two — goes through kernel B3
+(``ops/cuda_merge.py``): the two sorted key arrays are merged with the
+row number as payload, the count rows are gathered by it, and equal
+neighbours are added (each key occurs at most twice, A's row first). A
+fold of more than two runs is ``torch.sort`` + a segmented sum, as the JAX
+package's fold is not its Pallas kernel either.
 
 Counts are exact integers held in **int64**: PyTorch on the CPU lacks most
 uint32 arithmetic, ``torch.bincount`` wants int64, and sums never wrap. The
@@ -34,8 +38,9 @@ Count semantics match ``suffix_hash_n`` (src/suffix_hash.c:180-281): up to
 only in spectra: its dense blocks contribute their zero cells
 (src/kmer_tree.c:85-99), modelled by prefix-block accounting.
 
-Not ported yet: host/disk spill with the ranged fold, and
-``budget_semantics="drop"``; the constructor refuses both.
+Not ported yet: host/disk spill with the ranged fold
+(``_fold_spilled_ranged``), and ``budget_semantics="drop"``; the
+constructor refuses both.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops import cuda_merge
 from ..ops import encode as enc
 from .position_index import resolve_device
 
@@ -112,15 +118,18 @@ def reduce_rows(keys: torch.Tensor, cnt: torch.Tensor) -> Run:
 
 
 def merge_runs(runs: Sequence[Run]) -> Run:
-    """Merge runs (each with unique sorted keys) into one. Two runs — the
-    tier merge: concat + ``torch.sort`` + neighbour add, since a key occurs
-    at most twice. More — the fold: :func:`reduce_rows` of all rows."""
+    """Merge runs (each with unique sorted keys) into one. Two runs: B3
+    merges the key arrays with the row number as payload, the count rows
+    follow by a gather, and a key present in both runs (its two rows are
+    neighbours, A's first) keeps one row with the sum. More: the fold,
+    :func:`reduce_rows` of all rows."""
     keys = torch.cat([r[0] for r in runs])
     cnt = torch.cat([r[1] for r in runs])
     if len(runs) != 2:
         return reduce_rows(keys, cnt)
-    s, order = torch.sort(keys)
-    cnt = cnt[order]
+    na = int(runs[0][0].shape[0])
+    s, src = cuda_merge.merge(keys, None, (0, na, int(keys.shape[0])))
+    cnt = cnt.index_select(0, src)
     starts = _segment_starts(s)
     nxt_same = torch.zeros_like(starts)
     nxt_same[:-1] = ~starts[1:]
@@ -142,7 +151,9 @@ class CountStore:
     K-mers go in and out as raw int64 patterns (``ops.encode``); the base
     table ``keys`` holds their sortable form, ``cnt`` the int64 count rows.
     ``timings`` accumulates the host seconds spent in tier merges and in
-    folds, each ending in the sync that reads the run's length.
+    folds, each ending in the sync that reads the run's length;
+    ``fold_merges`` counts the folds that were a merge of exactly two runs
+    (B3 runs once per tier merge and once per such fold).
     """
 
     def __init__(self, k: int, counts_n: int = 1, prefix_bits: int = 0,
@@ -196,7 +207,8 @@ class CountStore:
         # build a run once this many valid observations are pending
         self.run_build_size = 1 << 16
         self.timings = {"tier_merges": 0, "tier_merge_s": 0.0,
-                        "tier_merge_rows": 0, "folds": 0, "fold_s": 0.0}
+                        "tier_merge_rows": 0, "folds": 0, "fold_merges": 0,
+                        "fold_s": 0.0}
 
     # -- adds -----------------------------------------------------------------
     @property
@@ -281,6 +293,7 @@ class CountStore:
         self._runs = []
         self.keys, self.cnt = runs[0] if len(runs) == 1 else merge_runs(runs)
         self.timings["folds"] += 1
+        self.timings["fold_merges"] += int(len(runs) == 2)
         self.timings["fold_s"] += time.perf_counter() - t0
         self._check_budget()
         return self

@@ -1,5 +1,6 @@
-"""The quality-likelihood iterator as a batched finite-state scan (PyTorch
-port of ``kmer_hasher_tpu/ops/scan_iter.py``, ``ll_scan`` part).
+"""The read iterators as batched finite-state scans (PyTorch port of
+``kmer_hasher_tpu/ops/scan_iter.py``): the quality-likelihood iterator
+:func:`ll_scan` and the per-base-threshold iterator :func:`threshold_scan`.
 
 The reference walks each read with a stateful iterator whose accept/reject
 decisions depend on data-dependent restarts (src/kmer_util.c:95-161): a
@@ -30,8 +31,12 @@ The f32 table is evaluated ONCE on the host with numpy float32
 (``log1p(-exp(q * -ln10/10))``) and uploaded, so the card and the CPU use
 the same bits; the JAX package evaluates the same formula on its backend.
 The hybrid bound (:func:`_rel_bound`) and the ``q == min_q`` threshold
-(:func:`fast_min_ll`) are derived from that very table. ``threshold_scan``
-waits for a later change.
+(:func:`fast_min_ll`) are derived from that very table.
+
+:func:`threshold_scan` is the iterator of ``count.kmers.fq`` and
+``count.kmers.fq.sh``. It is a ``lax.scan`` in the JAX package, not one of
+its Pallas kernels, so here it is the same kind of loop over positions in
+plain PyTorch, on either device.
 """
 from __future__ import annotations
 
@@ -314,4 +319,77 @@ def ll_scan(ascii_u8: torch.Tensor, qual_u8: torch.Tensor,
         out_rc[:, p] = rc
     if return_flags:
         return out_emit, out_fwd, out_rc, border
+    return out_emit, out_fwd, out_rc
+
+
+def threshold_scan(ascii_u8: torch.Tensor, qual_u8: torch.Tensor,
+                   lengths: torch.Tensor, k: int, min_q: int,
+                   has_qual: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-base-threshold iterator (seq_to_counts_kt / seq_to_counts_sh,
+    src/kmer_hash.c:257-332) over a padded read batch, on any device.
+
+    ascii_u8 / qual_u8: [B, L] uint8; lengths: [B]; ``min_q`` is the
+    quality CHARACTER ('!' + phred). Returns (emit bool, fwd int64, rc
+    int64), each [B, L], column p describing the window ending at p, in the
+    form of :func:`ll_scan`.
+
+    Build gate: not-N and qual >= min_q; roll gate: not-N and qual > min_q
+    (the reference's inconsistency, kept). A failed roll re-enters the
+    build at the same base (src/kmer_hash.c:306-308). A window completed by
+    a build on the read's last base is dropped. With ``has_qual=False``
+    only N gates. Reads of length <= k emit nothing."""
+    if ascii_u8.dim() != 2 or qual_u8.shape != ascii_u8.shape:
+        raise ValueError("expected [B, L] bases and qualities of one shape")
+    if not 1 <= k <= 32:
+        raise ValueError("k must be in 1..32")
+    B, L = ascii_u8.shape
+    dev = ascii_u8.device
+    codes = (ascii_u8.to(torch.int64) >> 1) & 3
+    not_n = (ascii_u8 | 0x20) != ord("n")
+    if has_qual:
+        q = qual_u8.to(torch.int32)
+        build_gate, roll_gate = not_n & (q >= min_q), not_n & (q > min_q)
+    else:
+        build_gate = roll_gate = not_n
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    pos = torch.arange(L, device=dev)
+    row_on = (lengths > k)[:, None] & (pos[None, :] < lengths[:, None])
+    last_pos = (lengths - 1)[:, None] == pos[None, :]
+    mask = -1 if k == 32 else (1 << (2 * k)) - 1
+    top = 2 * k - 2
+
+    rolling = torch.zeros(B, dtype=torch.bool, device=dev)
+    j = torch.zeros(B, dtype=torch.int64, device=dev)
+    fwd = torch.zeros(B, dtype=torch.int64, device=dev)
+    rc = torch.zeros(B, dtype=torch.int64, device=dev)
+    out_emit = torch.zeros((B, L), dtype=torch.bool, device=dev)
+    out_fwd = torch.zeros((B, L), dtype=torch.int64, device=dev)
+    out_rc = torch.zeros((B, L), dtype=torch.int64, device=dev)
+    for p in range(L):
+        c, bg, rg = codes[:, p], build_gate[:, p], roll_gate[:, p]
+        on, at_end = row_on[:, p], last_pos[:, p]
+        roll_ok = rolling & rg
+        b_ok = ~roll_ok & bg  # building, or a failed roll starting afresh
+        j_base = torch.where(rolling, 0, j)
+        take = (roll_ok | b_ok) & on
+        keep = (b_ok & (j_base > 0)) | roll_ok
+        src_f = torch.where(keep, fwd, 0)
+        src_r = torch.where(keep, rc, 0)
+        new_f = ((src_f << 2) | c) & mask
+        # >> on int64 is arithmetic: mask the two vacated top groups
+        new_r = (((src_r >> 2) & 0x3FFFFFFFFFFFFFFF)
+                 | ((c ^ 2) << top)) & mask
+        fwd = torch.where(take, new_f, fwd)
+        rc = torch.where(take, new_r, rc)
+        j_new = torch.where(b_ok, j_base + 1, 0)
+        completed = b_ok & (j_new == k) & on
+        # a build completing on the read's last base is dropped; the FSM
+        # still enters rolling (moot: the read is over)
+        out_emit[:, p] = ((completed & ~at_end) | roll_ok) & on
+        rolling_new = torch.where(on, roll_ok | completed, rolling)
+        j = torch.where(on, torch.where(rolling_new, 0, j_new), j)
+        rolling = rolling_new
+        out_fwd[:, p] = fwd
+        out_rc[:, p] = rc
     return out_emit, out_fwd, out_rc

@@ -131,6 +131,90 @@ def test_add_run_matches_a_dict_count(k):
         t.add_run(keys, cnt[:, :1], 0)
 
 
+def sort_form_merge(a, b):
+    """The two-run merge as concat + one full sort + neighbour add — what
+    the tier merge was before it went through kernel B3."""
+    keys, cnt = torch.cat([a[0], b[0]]), torch.cat([a[1], b[1]])
+    s, order = torch.sort(keys)
+    cnt = cnt[order]
+    starts = tcs._segment_starts(s)
+    nxt_same = torch.zeros_like(starts)
+    nxt_same[:-1] = ~starts[1:]
+    absorb = torch.zeros_like(cnt)
+    absorb[:-1] = cnt[1:]
+    return s[starts], (cnt + absorb * nxt_same[:, None])[starts]
+
+
+def run_of(rng, pool, n, counts_n):
+    keys = np.sort(rng.choice(pool, size=n, replace=False))
+    return (torch.from_numpy(keys),
+            torch.from_numpy(rng.integers(0, 50, size=(n, counts_n))))
+
+
+TWO_RUNS = {  # (rows of A, rows of B, how B's keys relate to A's)
+    "unequal, half shared": (700, 130, "mixed"),
+    "disjoint": (300, 300, "disjoint"),
+    "identical keys": (257, 257, "same"),
+    "A empty": (0, 40, "mixed"),
+    "B empty": (40, 0, "mixed"),
+    "both empty": (0, 0, "mixed"),
+    "one row each, equal": (1, 1, "same"),
+}
+
+
+@pytest.mark.parametrize("counts_n", [1, 2, 4])
+@pytest.mark.parametrize("case", sorted(TWO_RUNS))
+def test_two_run_merge_through_b3_equals_the_sort_form(case, counts_n):
+    """``merge_runs`` of two runs goes through ``cuda_merge.merge`` (its
+    plain version on the CPU): bitwise the concat + sort form, with the
+    all-ones key (a real k-mer here) present in both runs."""
+    na, nb, relation = TWO_RUNS[case]
+    rng = np.random.default_rng(na + 3 * nb + counts_n)
+    pool = np.unique(rng.integers(-2 ** 63, 2 ** 63 - 1, size=2000))
+    pool[-1] = 2 ** 63 - 1  # sortable form of the all-ones pattern
+    a = run_of(rng, pool[1::2] if relation == "disjoint" else pool, na,
+               counts_n)
+    if relation == "same":
+        b = (a[0].clone(), torch.from_numpy(
+            rng.integers(0, 50, size=(nb, counts_n))))
+    else:
+        b = run_of(rng, pool[::2] if relation == "disjoint" else pool, nb,
+                   counts_n)
+    calls = []
+    real = tcs.cuda_merge.merge
+    try:
+        tcs.cuda_merge.merge = lambda *args: calls.append(1) or real(*args)
+        got = tcs.merge_runs((a, b))
+    finally:
+        tcs.cuda_merge.merge = real
+    assert calls == [1]
+    want = sort_form_merge(a, b)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[1].dtype == torch.int64
+    assert int(got[1].sum()) == int(a[1].sum()) + int(b[1].sum())
+    if relation == "same":
+        assert got[0].shape[0] == na
+    if relation == "disjoint":
+        assert got[0].shape[0] == na + nb
+
+
+def test_folds_of_two_runs_are_counted_apart_from_tier_merges():
+    t = CountStore(21, device="cpu")
+    t.run_build_size = 8
+    rng = np.random.default_rng(0)
+    for size in (40, 9):  # two runs of different classes: no tier merge
+        raw = rng.integers(0, 1 << 42, size=size)
+        t.add_kmers(torch.from_numpy(raw), torch.ones(size, dtype=torch.bool),
+                    defer=True)
+    assert len(t._runs) == 2 and t.timings["tier_merges"] == 0
+    t.flush()
+    assert t.timings["folds"] == 1 and t.timings["fold_merges"] == 1
+    assert t.n_unique == 49 and int(t.cnt.sum()) == 49
+    assert set(t.timings) == {"tier_merges", "tier_merge_s",
+                              "tier_merge_rows", "folds", "fold_merges",
+                              "fold_s"}
+
+
 def test_lsm_policy_and_empty_store():
     runs = tcs.lsm_compact([4, 4, 8, 2], lambda r: r, lambda a, b: a + b)
     assert sorted(runs) == [2, 16]

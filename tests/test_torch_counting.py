@@ -257,6 +257,31 @@ def test_count_kmers_matches_jax(k):
     assert_same_store(t, j, k)
 
 
+@pytest.mark.parametrize("k", [15, 32])
+def test_depth_c_after_the_flagship_matches_jax(fq, k):
+    """``semantics="c"`` on a store the flagship filled: the one-column
+    shift, stale registers across the probe's N gaps, the tail."""
+    j = japi.count_kmers_fq_sh_rp(fq["a"], k=k, min_q=20, source_n=2,
+                                  source=1)
+    t = api.count_kmers_fq_sh_rp(fq["a"], k=k, min_q=20, source_n=2,
+                                 source=1, device="cpu")
+    reads = sorted((r[1].upper() for r in make_reads(1) if "N" not in r[1]),
+                   key=len)[-3:]  # the longest N-free reads
+    probes = [fq["probe"], reads[0][:k] + "N" + reads[0] + "n" + reads[1],
+              reads[2] + "NN" + reads[2][:k - 1]]
+    seen = 0
+    for q in probes:
+        got = api.seq_kmer_depth(t, q, k, semantics="c")
+        assert got.dtype == torch.int32 and got.shape == (2, len(q))
+        np.testing.assert_array_equal(
+            got.numpy(), japi.seq_kmer_depth(j, q, k, semantics="c"))
+        seen += int((got > 0).sum())
+    assert seen > 0
+    intent = api.seq_kmer_depth(t, probes[0], k)
+    assert not torch.equal(intent, api.seq_kmer_depth(t, probes[0], k,
+                                                      semantics="c"))
+
+
 def test_depth_is_na_over_n_and_short_sequences(fq):
     k = 15
     t = api.count_kmers_fq_sh_rp(fq["a"], k=k, device="cpu")
@@ -265,8 +290,12 @@ def test_depth_is_na_over_n_and_short_sequences(fq):
     assert api.seq_kmer_depth(t, "ACG", k).tolist() == [[-(2 ** 31)] * 3]
     with pytest.raises(ValueError):
         api.seq_kmer_depth(t, "ACGT" * 10, k + 1)
-    with pytest.raises(NotImplementedError):
-        api.seq_kmer_depth(t, "ACGT" * 10, k, semantics="c")
+    with pytest.raises(ValueError):
+        api.seq_kmer_depth(t, "ACGT" * 10, k, semantics="reference")
+    # the exact-C track: NA over all-N input too, and n < k
+    for semantics in ("intent", "c"):
+        assert api.seq_kmer_depth(t, "ACG", k, semantics=semantics).tolist() \
+            == [[-(2 ** 31)] * 3]
 
 
 def test_argument_checks(fq):

@@ -1,4 +1,4 @@
-"""The CUDA kernels B1 and B2 against their plain PyTorch versions, and
+"""The CUDA kernels B1, B2 and B3 against their plain PyTorch versions, and
 the paths through them against the CPU, on the card.
 
 Needs a CUDA device: marked ``cuda`` and skipped (visibly) without one.
@@ -14,7 +14,9 @@ import torch
 
 from kmer_hasher_tpu_torch import api
 from kmer_hasher_tpu_torch import counting
-from kmer_hasher_tpu_torch.ops import cuda_encode, cuda_scan
+from kmer_hasher_tpu_torch.index import count_store
+from kmer_hasher_tpu_torch.ops import cuda_encode, cuda_merge, cuda_scan
+from kmer_hasher_tpu_torch.ops import merge_sort
 from kmer_hasher_tpu_torch.qll import Q_TO_LL
 
 pytestmark = pytest.mark.cuda
@@ -193,3 +195,158 @@ def test_counting_on_card_matches_cpu(cuda, exact_ll):
     probe = seq[3]
     assert torch.equal(api.seq_kmer_depth(g, probe, k).cpu(),
                        api.seq_kmer_depth(c, probe, k))
+
+
+SIGN = np.uint64(1 << 63)
+FIVE_KEYS = np.array([0, 1, 2 ** 63, 2 ** 64 - 1, 42], np.uint64)
+
+
+def sorted_runs(rng, lens, dup, flagged=True):
+    """Flat (sortable int64 keys, int32 payload lane, bounds) of runs each
+    sorted by (key, unsigned payload); ``dup`` draws from five keys, the
+    all-ones key among them; ``flagged`` sets bit 31 on a third of the
+    payloads, as the k = 32 index payload does."""
+    ks, ps = [], []
+    for n in lens:
+        k = (rng.choice(FIVE_KEYS, size=n) if dup else
+             rng.integers(0, 2 ** 64 - 1, size=n, dtype=np.uint64))
+        p = rng.integers(0, 2 ** 31, size=n, dtype=np.uint64)
+        if flagged:
+            p[::3] |= np.uint64(1 << 31)
+        order = np.lexsort((p, k))
+        ks.append(k[order])
+        ps.append(p[order].astype(np.uint32))
+    keys = torch.from_numpy((np.concatenate(ks) ^ SIGN).view(np.int64))
+    pay = torch.from_numpy(np.concatenate(ps).view(np.int32).copy())
+    return keys, pay, np.concatenate([[0], np.cumsum(lens)])
+
+
+B3_SHAPES = {
+    "one pair, unequal": (70_001, 33_000),
+    "many short pairs": (5, 0, 0, 0, 1, 1, 2049, 3, 1, 4096, 2048, 2048),
+    "an empty run and a run of 1": (0, 1),
+    "A empty": (0, 5000),
+    "B empty": (5000, 0),
+    "64 equal runs": (4096,) * 64,
+    "not a multiple of the tile": (2047, 2050, 6143, 1),
+}
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("shape", sorted(B3_SHAPES))
+def test_b3_kernel_matches_plain(cuda, shape, dup, implicit):
+    rng = np.random.default_rng(len(shape) + 2 * dup)
+    keys, pay, bounds = sorted_runs(rng, B3_SHAPES[shape], dup)
+    keys = keys.to(cuda)
+    pay = None if implicit else pay.to(cuda)
+    before = cuda_merge.merge.launches
+    got = cuda_merge.merge(keys, pay, bounds)
+    torch.cuda.synchronize()
+    assert cuda_merge.merge.launches == before + 1
+    want = cuda_merge.plain(keys, pay, bounds)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_b3_merge_sort_matches_the_ordinary_sort(cuda, dup):
+    rng = np.random.default_rng(11 + dup)
+    n, Lt = 1 << 20, 1 << 12
+    keys, pay, _b = sorted_runs(rng, (n,), dup)
+    perm = torch.from_numpy(rng.permutation(n))
+    keys, pay = keys[perm].to(cuda), pay[perm].to(cuda)
+    before = cuda_merge.merge.launches
+    got = merge_sort.sort_kmers_merge(keys, pay, Lt=Lt)
+    assert cuda_merge.merge.launches == before + 8  # log2(n / Lt) rounds
+    want = merge_sort.lex_sort(keys, pay)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_b3_rejects_what_it_does_not_take(cuda):
+    k = torch.zeros(64, dtype=torch.int64, device=cuda)
+    p = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        cuda_merge.merge(k[::2], None, (0, 16, 32))
+    with pytest.raises(ValueError):
+        cuda_merge.merge(k, p.cpu(), (0, 32, 64))
+    with pytest.raises(TypeError):
+        cuda_merge.merge(k.int(), p, (0, 32, 64))
+    with pytest.raises(ValueError):
+        cuda_merge.merge(k, p, (0, 32, 63))
+
+
+@pytest.mark.parametrize("counts_n", [1, 3])
+def test_two_run_store_merge_on_card_matches_cpu(cuda, counts_n):
+    rng = np.random.default_rng(counts_n)
+    pool = np.unique(rng.integers(-2 ** 63, 2 ** 63 - 1, size=60_000))
+    runs = []
+    for n in (40_000, 25_000):
+        keys = np.sort(rng.choice(pool, size=n, replace=False))
+        cnt = rng.integers(0, 1000, size=(n, counts_n))
+        runs.append((torch.from_numpy(keys), torch.from_numpy(cnt)))
+    before = cuda_merge.merge.launches
+    g = count_store.merge_runs([(k.to(cuda), c.to(cuda)) for k, c in runs])
+    assert cuda_merge.merge.launches == before + 1
+    c = count_store.merge_runs(runs)
+    assert torch.equal(g[0].cpu(), c[0]) and torch.equal(g[1].cpu(), c[1])
+    assert int(g[1].sum()) == sum(int(r[1].sum()) for r in runs)
+
+
+@pytest.mark.parametrize("k", [16, 21, 32])
+def test_flagged_index_on_card_matches_flag_off(cuda, k, monkeypatch):
+    rng = np.random.default_rng(70 + k)
+    seq = random_seq(rng, 1 << 17, n_runs=40)
+    seq[3000:3400] = seq[1000:1400]
+    seq[9000:9100] = ord("G")  # real all-G windows
+    monkeypatch.setenv("KMH_MERGE_SORT", "0")
+    off = api.make_kmer_hash(seq, k, device=cuda)
+    monkeypatch.setenv("KMH_MERGE_SORT", "1")
+    monkeypatch.setattr(merge_sort, "LT", 1 << 12)
+    before = cuda_merge.merge.launches
+    on = api.make_kmer_hash(seq, k, device=cuda)
+    assert cuda_merge.merge.launches == before + 5  # 2^17 / 2^12 runs
+    cpu = api.make_kmer_hash(seq, k, device="cpu")  # flag on, plain rounds
+    nv = on.n_valid
+    assert nv == off.n_valid == cpu.n_valid
+    for name in ("s_key", "s_pos", "starts"):
+        assert torch.equal(getattr(on, name).cpu(), getattr(cpu, name)), name
+        assert torch.equal(getattr(on, name)[:nv], getattr(off, name)[:nv])
+        if k > 16:
+            assert torch.equal(getattr(on, name), getattr(off, name)), name
+
+
+def threshold_file(tmp_path, rng, k):
+    seq, qual, lengths = read_batch(rng, k, B=700, quals="uniform")
+    has_qual = np.arange(700) % 9 != 4
+    path = tmp_path / "reads.fq"
+    with open(path, "wb") as f:
+        for i in range(700):
+            s, q = seq[i, :lengths[i]], qual[i, :lengths[i]]
+            if has_qual[i] and lengths[i]:
+                f.write(b"@r\n" + s.tobytes() + b"\n+\n" + q.tobytes()
+                        + b"\n")
+            elif lengths[i]:
+                f.write(b">r\n" + s.tobytes() + b"\n")
+    return str(path), seq[3]
+
+
+@pytest.mark.parametrize("entry", ["count_kmers_fq", "count_kmers_fq_sh"])
+def test_threshold_entries_on_card_match_cpu(cuda, entry, tmp_path,
+                                             monkeypatch):
+    k = 11
+    monkeypatch.setattr(counting, "BATCH_ROWS", 100)  # several tier merges
+    path, probe = threshold_file(tmp_path, np.random.default_rng(2), k)
+    before = cuda_merge.merge.launches
+    g = getattr(api, entry)(path, k=k, min_q=12, device=cuda)
+    assert cuda_merge.merge.launches == (
+        before + g.timings["tier_merges"] + g.timings["fold_merges"])
+    assert g.timings["tier_merges"] >= 2
+    c = getattr(api, entry)(path, k=k, min_q=12, device="cpu")
+    assert torch.equal(g.keys.cpu(), c.keys)
+    assert torch.equal(g.cnt.cpu(), c.cnt)
+    np.testing.assert_array_equal(api.kmer_spectrum(g, 50),
+                                  api.kmer_spectrum(c, 50))
+    for semantics in ("intent", "c"):
+        assert torch.equal(
+            api.seq_kmer_depth(g, probe, k, semantics=semantics).cpu(),
+            api.seq_kmer_depth(c, probe, k, semantics=semantics))

@@ -38,6 +38,25 @@ with tempfile.TemporaryDirectory() as d:
     assert st2.counts_dict() == st.counts_dict()
     assert metrics.most_common_kmer(st)["count"] > 0
     assert api.count_kmers(["ACGTTGCAGG"], 5, device="cpu").n_unique > 0
+    # the per-base-threshold entries, the exact-C depth and the merge sort
+    # behind KMH_MERGE_SORT (ops.merge_sort, ops.cuda_merge)
+    for entry in (api.count_kmers_fq, api.count_kmers_fq_sh):
+        th = entry(str(fq), k=11, min_q=20, device="cpu")
+        assert th.n_unique > 0
+    assert api.seq_kmer_depth(th, "ACGTTGCAGGAC" * 2 + "N" + "ACGTTGCAGGA",
+                              11, semantics="c").max() > 0
+import os
+from kmer_hasher_tpu_torch.ops import cuda_merge, merge_sort
+os.environ["KMH_MERGE_SORT"] = "1"
+merge_sort.LT = 16
+calls = []
+real = cuda_merge.merge
+cuda_merge.merge = lambda *a: calls.append(1) or real(*a)
+idx2 = api.make_kmer_hash("ACGTTGCANNACGTTGCAGG" * 5, 5, device="cpu")
+assert len(calls) == 3 and idx2.n_valid == idx.n_valid  # 128 windows, Lt 16
+assert (idx2.s_pos[: idx.n_valid] == idx.s_pos[: idx.n_valid]).all()
+for name in ("ops.merge_sort", "ops.cuda_merge"):
+    assert "kmer_hasher_tpu_torch." + name in sys.modules, name
 import chip_smoke  # the smoke script's own imports (it runs only as main)
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
@@ -58,7 +77,9 @@ def test_port_imports_no_jax():
 def test_sources_name_no_jax():
     # imports inside functions run only when called: read every one
     sources = list((REPO / "kmer_hasher_tpu_torch").rglob("*.py"))
-    assert len(sources) >= 18
+    assert len(sources) >= 20
+    names = {p.name for p in sources}
+    assert {"merge_sort.py", "cuda_merge.py"} <= names
     for path in sources + [REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             s = line.strip()
@@ -86,6 +107,9 @@ CALLS = {
     "CountStore": lambda api, ck, p: api.CountStore(5),
     "count_kmers": lambda api, ck, p: api.count_kmers(["ACGT" * 20], 5),
     "count_kmers_fq_sh_rp": lambda api, ck, p: api.count_kmers_fq_sh_rp(
+        p["fq"], k=5),
+    "count_kmers_fq": lambda api, ck, p: api.count_kmers_fq(p["fq"], k=5),
+    "count_kmers_fq_sh": lambda api, ck, p: api.count_kmers_fq_sh(
         p["fq"], k=5),
     "load_index": lambda api, ck, p: ck.load_index(p["index"]),
     "load_count_store": lambda api, ck, p: ck.load_count_store(p["store"]),
