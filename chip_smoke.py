@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the position-index path
 (also through the merge sort behind KMH_MERGE_SORT=1), the quality-filtered
-counting path and the per-base-threshold entries, end to end.
+counting path, the per-base-threshold entries, the sort-design probes and
+the count store's spill regime with its ranged out-of-core fold, end to end.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -13,9 +14,12 @@ is nonzero:
 3. kernels — B1 (encode), B2 (quality-likelihood FSM, three
              instantiations) and B3 (merge path: sort-round shapes at 2^26,
              the five-key adversarial input, the count store's two-run
-             shape with the implicit payload, edge shapes) against their
-             plain PyTorch versions on the card, bitwise, at the shapes the
-             main paths launch them with;
+             shape with the implicit payload, edge shapes) and the probe
+             kernels P1-P4 (copy, copy from device-known offsets at granules
+             1,024 / 8 / 1, rotation by device-known shifts; at the TPU
+             probes' shapes and at 2^26 elements) against their plain
+             PyTorch versions on the card, bitwise, at the shapes the main
+             paths launch them with;
 4. main (index) — make_kmer_hash(k=32) of a 40,000,000-base sequence,
              kmer_pos(2|8), the full pair drain, then a k=21 index and
              seq_kmer_pos with a 1,000,000-base query, with checks;
@@ -36,13 +40,28 @@ is nonzero:
              CPU's stores; then 4 full-width batches with stress qualities,
              where hybrid flags reads and re-scans them in f64, against
              exact. Kernel launches are counted per path (index, merge-sort
-             index, counting, file, threshold), set to 0 just before each
-             and read just after;
+             index, counting, file, threshold, probes, spill), set to 0 just
+             before each and read just after;
+   main (probes) — python -m kmer_hasher_tpu_torch.probes.sort_probes at
+             log_n 26 through its entry point: E1 (P1), E2 at three granules
+             (P2), E3 (P3), E3b (P4), E4 and E5 (plain sorts);
+   main (spill) — the full-corpus regime of the JAX package's
+             tools/chip_probes/spill_regime.py: 244 batches x 29,696
+             uniform-random 151-base reads, k=21, min_q=20, through
+             _fused_rp_batch and add_run into CountStore(spill_bytes=1.5
+             GiB); flush by the ranged fold (KMH_FOLD_BUDGET_BYTES = 3 GiB,
+             that script's value), spectrum(10); at least 2 spills, 4
+             ranges and 5e8 distinct k-mers, and the sliced exact control
+             (a second store fed only the keys whose top 10 of 42 bits are
+             zero equals the big table's prefix bitwise);
 6. card vs CPU — index tables for k in {16, 21, 32}; counting in all
-             three likelihood modes and a two-source store, bitwise;
+             three likelihood modes and a two-source store; a spilled store
+             (memory and disk), a ranged fold and a drop-mode
+             count_kmers_fq, bitwise;
 7. times   — B1, B2 and B3 vs plain (B3 also beside torch.sort of the
              concatenated keys, the one library call that computes a
-             merge), build_index_arrays with the flag off and on, the index
+             merge), P1-P4 vs plain and vs one library call each,
+             build_index_arrays with the flag off and on, the index
              path, one threshold_scan batch, and the counting rates E2E /
              FUSED / FSM with the share of tier merges, of the fold, and
              the device's idle share over the whole 64-batch loop.
@@ -96,6 +115,11 @@ VARIANTS = {  # B2's three instantiations, as cuda_scan.scan selects them
                       min_q_char=33 + MIN_Q),
     "f64": dict(precision="exact"),
 }
+# the probes: the TPU scripts' size and the full-card size
+PROBE_REF_LOG_N, PROBE_LOG_N = 24, 26
+# the spill regime of tools/chip_probes/spill_regime.py in the JAX package
+SPILL_BATCHES, SPILL_BYTES, SPILL_FOLD_BUDGET = 244, 3 << 29, 3 << 30
+SPILL_MIN_DISTINCT = 500_000_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 NA = -(2 ** 31)
@@ -711,23 +735,25 @@ def draw_reads(genome: torch.Tensor, gen, rows: int):
             torch.ones(rows, dtype=torch.bool, device=dev))
 
 
-def reset_launches():
+def counted_wrappers():
+    """The seven kernels' wrappers in the order B1, B2, B3, P1, P2, P3, P4."""
     from kmer_hasher_tpu_torch.ops import cuda_encode as b1
     from kmer_hasher_tpu_torch.ops import cuda_merge as b3
     from kmer_hasher_tpu_torch.ops import cuda_scan as b2
+    from kmer_hasher_tpu_torch.probes import cuda_probes as cp
 
-    b1.encode.launches = 0
-    b2.scan.launches = 0
-    b3.merge.launches = 0
+    return (b1.encode, b2.scan, b3.merge, cp.copy, cp.dyn_copy, cp.roll_rows,
+            cp.roll_flat)
+
+
+def reset_launches():
+    for w in counted_wrappers():
+        w.launches = 0
 
 
 def read_launches():
-    """(B1, B2, B3) launches since the last reset."""
-    from kmer_hasher_tpu_torch.ops import cuda_encode as b1
-    from kmer_hasher_tpu_torch.ops import cuda_merge as b3
-    from kmer_hasher_tpu_torch.ops import cuda_scan as b2
-
-    return b1.encode.launches, b2.scan.launches, b3.merge.launches
+    """(B1, B2, B3, P1, P2, P3, P4) launches since the last reset."""
+    return tuple(w.launches for w in counted_wrappers())
 
 
 def two_run_merges(store) -> int:
@@ -805,7 +831,8 @@ def phase_main_counting(genome: torch.Tensor, batches, tmp: Path):
     stretch_c = depth_probe_c(stretch, k)
     depth_c = api.seq_kmer_depth(store, stretch_c, k, semantics="c")
     torch.cuda.synchronize()
-    b1_n, b2_n, b3_n = read_launches()
+    n_main = read_launches()
+    b1_n, b2_n, b3_n = n_main[:3]
 
     total = int(store.total_added.sum())
     if store.device.type != "cuda" or store.keys.device.type != "cuda":
@@ -879,7 +906,8 @@ def phase_main_counting(genome: torch.Tensor, batches, tmp: Path):
     st = api.count_kmers_fq_sh_rp(str(fq), k=k, min_q=MIN_Q)
     torch.cuda.synchronize()
     t_file = time.perf_counter() - t0
-    b1_file, b2_file, b3_file = read_launches()
+    n_file = read_launches()
+    b1_file, b2_file, b3_file = n_file[:3]
     if b2_file < 1 or b3_file != two_run_merges(st):
         raise AssertionError(
             f"the file entry launched B2 {b2_file} and B3 {b3_file} times; "
@@ -904,8 +932,7 @@ def phase_main_counting(genome: torch.Tensor, batches, tmp: Path):
         f"equal to the same reads staged on the card; checkpoint round "
         f"trip exact; {t_file:.3f} s; B1 launches {b1_file}, B2 launches "
         f"{b2_file}, B3 launches {b3_file}")
-    launches = {"counting": (b1_n, b2_n, b3_n),
-                "file": (b1_file, b2_file, b3_file)}
+    launches = {"counting": n_main, "file": n_file}
     return launches, fq, {"wall": wall, "timings": dict(tm),
                           "n_reads": n_reads, "flagged": flagged}
 
@@ -1192,13 +1219,378 @@ def phase_times_counting(batches, card: str, main_stats: dict):
     return ms, plain_ms
 
 
+# -- the probes ---------------------------------------------------------------
+
+def rand32(gen, shape) -> torch.Tensor:
+    """Uniform 32-bit elements on the card, as the probes' int32."""
+    return torch.randint(-(1 << 31), 1 << 31, shape, generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+
+def probe_cases(gen) -> dict:
+    """P1-P4's inputs on the card, by kernel and shape name. "ref" shapes
+    are the TPU probes' (2^24 elements; 64 tiles; one [64, 128] tile with
+    shift 5 or 777), "full" the full-card ones (2^26 elements; 2^26 / 2^13
+    tiles from distinct offsets; as many tiles with a shift each, among them
+    0, 1, N - 1, N and values above N and below 0)."""
+    from kmer_hasher_tpu_torch.probes import cuda_probes as cp
+    from kmer_hasher_tpu_torch.probes import sort_probes as sp
+
+    n_ref, n_full = 1 << PROBE_REF_LOG_N, 1 << PROBE_LOG_N
+    x = rand32(gen, (n_full,))
+    cases = {"P1": {"ref": (x[:n_ref],), "full": (x,)}, "P2": {},
+             "P3": {}, "P4": {}}
+    for g in sp.GRANULES:
+        offs = sp.reference_offsets(n_ref, g)
+        cases["P2"][f"ref, granule {g}"] = (
+            x[:n_ref], torch.from_numpy(offs).cuda())
+        offs = sp.spread_offsets(n_full, g, n_full // cp.CH)
+        cases["P2"][f"full, granule {g}"] = (x, torch.from_numpy(offs).cuda())
+    tile_n = sp.TILE[0] * sp.TILE[1]
+    tiles = n_full // tile_n
+    xt = x.reshape((tiles,) + sp.TILE)
+    for name, unit, shift in (("P3", sp.TILE[0], sp.SHIFT_ROWS),
+                              ("P4", tile_n, sp.SHIFT_FLAT)):
+        sh = torch.randint(-3 * unit, 3 * unit, (tiles,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+        sh[:8] = torch.tensor([0, 1, unit - 1, unit, unit + 1, 5 * unit + 3,
+                               -1, -unit - 2], dtype=torch.int32)
+        cases[name]["ref"] = (xt[0], torch.tensor(
+            [shift], dtype=torch.int32, device="cuda"))
+        cases[name]["full"] = (xt, sh)
+    return cases
+
+
+def probe_kernels():
+    """name -> (wrapper, plain version)."""
+    from kmer_hasher_tpu_torch.probes import cuda_probes as cp
+
+    return {"P1": (cp.copy, cp.plain_copy),
+            "P2": (cp.dyn_copy, cp.plain_dyn_copy),
+            "P3": (cp.roll_rows, cp.plain_roll_rows),
+            "P4": (cp.roll_flat, cp.plain_roll_flat)}
+
+
+def phase_kernels_probes(cases: dict) -> dict:
+    """P1-P4 against their plain versions on the same CUDA tensors,
+    bitwise. Returns the worst max_abs_err by kernel."""
+    worst = {}
+    for name, (fn, plain) in probe_kernels().items():
+        worst[name] = 0.0
+        for shape, args in cases[name].items():
+            got = fn(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            worst[name] = max(worst[name], err)
+            if err or got.shape != want.shape:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {shape}, max_abs_err={err}")
+            del got, want
+        log(f"[kernels] {name} == plain, bitwise, on {len(cases[name])} "
+            f"inputs: {', '.join(cases[name])} (max_abs_err {worst[name]})")
+    return worst
+
+
+def phase_main_probes():
+    """The probe entry point as a user runs it, at log_n 26 on the card."""
+    from kmer_hasher_tpu_torch.probes import _common, sort_probes
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sort_probes.run(PROBE_LOG_N)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    # every probe line is one check launch plus one timing's launches
+    per = 1 + _common.calls_per_timing(torch.device("cuda"))
+    want = (0, 0, 0, per, 2 * len(sort_probes.GRANULES) * per, per, per)
+    if launches != want:
+        raise AssertionError(f"the probe entry launched (B1, B2, B3, P1, P2, "
+                             f"P3, P4) {launches}, want {want}")
+    lines = 2 + 2 * len(res["E2"]) + 1 + len(res["E4"]) + len(res["E5"])
+    log(f"[main] probes: sort_probes at log_n {PROBE_LOG_N} through its "
+        f"entry point, {lines} lines, all ok (a probe that is not raises), "
+        f"{wall:.3f} s; launches P1 "
+        f"{launches[3]}, P2 {launches[4]} (3 granules x 2 tile counts), P3 "
+        f"{launches[5]}, P4 {launches[6]}: per line 1 check + "
+        f"{per - 1} timed")
+    return launches
+
+
+# -- the spill regime ---------------------------------------------------------
+
+def draw_uniform_reads(gen, rows: int):
+    """One batch of uniform-random reads drawn on the card, with the spill
+    regime's qualities: phred 30-40, about 2% of the bases at phred 2-19."""
+    L = READ_LEN
+    seq = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device="cuda")[
+        torch.randint(0, 4, (rows, L), generator=gen, device="cuda")]
+    qual = torch.randint(63, 74, (rows, L), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    low = torch.rand((rows, L), generator=gen, device="cuda") < 0.02
+    lowq = torch.randint(35, 53, (rows, L), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    return seq, torch.where(low, lowq, qual)
+
+
+def phase_main_spill(gen, card: str):
+    """The full-corpus spill regime: see the module docstring."""
+    from kmer_hasher_tpu_torch import api, counting
+    from kmer_hasher_tpu_torch.qll import Q_TO_LL
+
+    k = K_COUNT
+    n_reads = SPILL_BATCHES * ROWS
+    n_win = counting.win_bucket(READ_LEN, k)
+    min_ll = float(Q_TO_LL[33 + MIN_Q])
+    lengths = torch.full((ROWS,), READ_LEN, dtype=torch.int32, device="cuda")
+    has_qual = torch.ones(ROWS, dtype=torch.bool, device="cuda")
+    slice_top = 1 << 32  # raw k-mers below it: top 10 of the 42 bits zero
+    before = os.environ.get("KMH_FOLD_BUDGET_BYTES")
+    os.environ["KMH_FOLD_BUDGET_BYTES"] = str(SPILL_FOLD_BUDGET)
+    try:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store = api.CountStore(k, counts_n=1, mode="sh",
+                               spill_bytes=SPILL_BYTES)
+        control = api.CountStore(k, counts_n=1, mode="sh")
+        for i in range(SPILL_BATCHES):
+            seq, qual = draw_uniform_reads(gen, ROWS)
+            keys, cnt, n_obs = counting._fused_rp_batch(
+                seq, qual, lengths, has_qual, k, 1, 0, min_ll, "fast",
+                min_q_char=33 + MIN_Q, n_win=n_win)[:3]
+            sl = (keys ^ SIGN) < slice_top  # the run's sorted prefix
+            control.add_run(keys[sl], cnt[sl], int(cnt[sl].sum()))
+            spills = store.timings["spills"]
+            store.add_run(keys, cnt, n_obs)
+            if store.timings["spills"] > spills:
+                log(f"[main] spill: batch {i + 1}/{SPILL_BATCHES}: spill "
+                    f"#{store.timings['spills']}, "
+                    f"{store.timings['spilled_rows']:,} rows on the host so "
+                    f"far, {store._device_run_bytes() >> 20} MiB of runs "
+                    f"resident")
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter() - t0
+        loop_tm = dict(store.timings)
+        t0 = time.perf_counter()
+        store.flush()
+        torch.cuda.synchronize()
+        t_fold = time.perf_counter() - t0
+    finally:
+        if before is None:
+            del os.environ["KMH_FOLD_BUDGET_BYTES"]
+        else:
+            os.environ["KMH_FOLD_BUDGET_BYTES"] = before
+    t0 = time.perf_counter()
+    spec = api.kmer_spectrum(store, 10)
+    t_spec = time.perf_counter() - t0
+    control.flush()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    tm = store.timings
+    distinct, total = store.n_unique, int(store.total_added.sum())
+    n0 = int(((store.keys ^ SIGN) < slice_top).sum())
+    if not (n0 == control.n_unique > 0
+            and torch.equal(store.keys[:n0], control.keys)
+            and torch.equal(store.cnt[:n0], control.cnt)
+            and int(control.total_added.sum()) == int(control.cnt.sum())):
+        raise AssertionError(
+            f"sliced exact control: the big table's prefix ({n0:,} rows) "
+            f"differs from the control store ({control.n_unique:,} rows)")
+    if loop_tm["spills"] < 2 or tm["ranged_folds"] != 1 or tm["ranges"] < 4:
+        raise AssertionError(
+            f"not the spill regime: {loop_tm['spills']} spills in the loop, "
+            f"{tm['ranged_folds']} ranged folds, {tm['ranges']} ranges")
+    if distinct < SPILL_MIN_DISTINCT:
+        raise AssertionError(f"{distinct:,} distinct k-mers, want at least "
+                             f"{SPILL_MIN_DISTINCT:,}")
+    if not (store.keys.is_cuda and int(store.cnt.sum()) == total
+            and bool((store.keys[1:] > store.keys[:-1]).all())
+            and spec.shape == (11,) and int(spec.sum()) == distinct):
+        raise AssertionError("the folded table is not a sorted unique table "
+                             "on the card that sums to total_added")
+    merges = two_run_merges(store) + two_run_merges(control)
+    if launches[1] != SPILL_BATCHES or launches[2] != merges or merges < 1:
+        raise AssertionError(
+            f"the spill path launched B2 {launches[1]} and B3 {launches[2]} "
+            f"times; its stores merged two runs {merges} times")
+    log(f"[main] spill: {SPILL_BATCHES} batches x {ROWS:,} uniform-random "
+        f"reads x {READ_LEN} = {n_reads:,} reads, k={k}, min_q={MIN_Q}, f32 "
+        f"filter, spill_bytes {SPILL_BYTES >> 20} MiB, fold budget "
+        f"{SPILL_FOLD_BUDGET >> 20} MiB: {total:,} observations, "
+        f"{distinct:,} distinct; count loop {t_loop:.3f} s = "
+        f"{n_reads / t_loop:,.0f} reads/s with {loop_tm['spills']} spills "
+        f"({loop_tm['spill_s']:.3f} s, {loop_tm['spilled_rows']:,} rows) and "
+        f"{loop_tm['tier_merges']} tier merges "
+        f"({loop_tm['tier_merge_s']:.3f} s); fold {t_fold:.3f} s: "
+        f"{tm['spills'] - loop_tm['spills']} more runs to the host "
+        f"({tm['spill_s'] - loop_tm['spill_s']:.3f} s), then {tm['ranges']} "
+        f"key ranges, {tm['fold_merges']} two-run merges; spectrum(10) "
+        f"{t_spec:.3f} s, head {spec[:4].astype(np.int64).tolist()}; "
+        f"{n_reads / (t_loop + t_fold):,.0f} reads/s loop + fold; peak "
+        f"device memory {peak / 2 ** 30:.2f} GiB | {card}")
+    log(f"[main] spill: sliced exact control: the {n0:,} rows of the big "
+        f"table below 2^32 (1/1024 of the key space) equal the control "
+        f"store bitwise; B2 launches {launches[1]}, B3 launches "
+        f"{launches[2]} = {two_run_merges(store)} two-run merges of the big "
+        f"store (tier {tm['tier_merges']}, fold {tm['fold_merges']}) + "
+        f"{two_run_merges(control)} of the control")
+    return launches
+
+
+def phase_card_vs_cpu_spill(batches, fq: Path, tmp: Path) -> None:
+    """A spilled store (to memory and to files), a ranged fold forced by a
+    small fold budget, and a drop-mode count_kmers_fq, each on the card and
+    on the CPU: bitwise equal."""
+    from kmer_hasher_tpu_torch import api, counting
+
+    k = K_COUNT
+    cut = [tuple(a[:4096] for a in b) for b in batches[:8]]
+    host = [tuple(a.cpu() for a in b) for b in cut]
+    before = os.environ.get("KMH_FOLD_BUDGET_BYTES")
+    seen = []
+    try:
+        for how in ("memory", "disk", "ranged"):
+            if how == "ranged":
+                os.environ["KMH_FOLD_BUDGET_BYTES"] = str(4 << 20)
+            got = {}
+            for dev, bs in (("cuda", cut), ("cpu", host)):
+                st = api.CountStore(
+                    k, spill_bytes=2 << 20, device=dev,
+                    spill_dir=str(tmp / f"spill-{dev}") if how == "disk"
+                    else None)
+                counting.count_batches(st, bs, k, min_q=MIN_Q, exact_ll=True)
+                got[dev] = st
+            g, c = got["cuda"], got["cpu"]
+            tm = g.timings
+            same = (torch.equal(g.keys.cpu(), c.keys)
+                    and torch.equal(g.cnt.cpu(), c.cnt)
+                    and (g.total_added == c.total_added).all()
+                    and (api.kmer_spectrum(g, 255)
+                         == api.kmer_spectrum(c, 255)).all())
+            if not same or tm["spills"] < 2 or (
+                    tm["ranged_folds"] != int(how == "ranged")) or (
+                    how == "ranged" and tm["ranges"] < 4):
+                raise AssertionError(
+                    f"spill to {how}: card and CPU differ, or the card store "
+                    f"did not spill as meant: {tm}")
+            if how == "disk" and list(tmp.glob("spill-*/kmh_spill_*")):
+                raise AssertionError("spill files were left behind")
+            seen.append(f"{how} ({tm['spills']} spills, {tm['ranges']} "
+                        f"ranges, {g.n_unique:,} k-mers)")
+    finally:
+        if before is None:
+            os.environ.pop("KMH_FOLD_BUDGET_BYTES", None)
+        else:
+            os.environ["KMH_FOLD_BUDGET_BYTES"] = before
+    drop = {dev: api.count_kmers_fq(
+        str(fq), k=k, min_q=MIN_Q, max_mem_gb=1, max_reads=10_000,
+        budget_semantics="drop", device=dev) for dev in ("cuda", "cpu")}
+    g, c = drop["cuda"], drop["cpu"]
+    if not (g.keys.is_cuda and g._admit_frozen and g.n_unique > 0
+            and torch.equal(g.keys.cpu(), c.keys)
+            and torch.equal(g.cnt.cpu(), c.cnt)
+            and (g.total_added == c.total_added).all()
+            and (g._admitted == c._admitted).all()
+            and g.n_alloc_blocks() == len(g._admitted) == g._budget_blocks
+            and (api.kmer_spectrum(g, 255)
+                 == api.kmer_spectrum(c, 255)).all()):
+        raise AssertionError("drop-mode count_kmers_fq: card and CPU differ")
+    log(f"[card-vs-cpu] spill, 8 batches x 4,096 reads, spill_bytes 2 MiB: "
+        f"{'; '.join(seen)}; drop-mode count_kmers_fq of 10,000 reads with a "
+        f"1 GiB budget ({g._budget_blocks} blocks admitted, then frozen; "
+        f"{g.n_unique:,} k-mers kept, {int(g.total_added.sum()):,} "
+        f"observations) — keys, counts, total_added and spectrum(255) "
+        f"bitwise equal card vs CPU")
+
+
+def phase_times_probes(cases: dict, card: str) -> dict:
+    """P1-P4 per launch at every shape, beside the plain version and one
+    library call: ``copy_`` into a tensor that exists (P1), the gather with
+    its index built beforehand (P2; P3/P4 at the full shape), ``torch.roll``
+    with the shift read back from the card (P3/P4, one tile)."""
+    from kmer_hasher_tpu_torch.probes import cuda_probes as cp
+    from kmer_hasher_tpu_torch.probes import sort_probes as sp
+
+    def library(name, shape, args):
+        x = args[0]
+        if name == "P1":
+            out = torch.empty_like(x)
+            return lambda: out.copy_(x)
+        if name == "P2":
+            idx = (args[1].long()[:, None] + torch.arange(
+                cp.CH, device="cuda")).reshape(-1)
+            return lambda: x[idx]
+        if shape == "ref":
+            if name == "P3":
+                return lambda: torch.roll(x, int(args[1]), 0)
+            return lambda: torch.roll(x.reshape(-1), int(args[1]))
+        n = sp.TILE[0] * sp.TILE[1]
+        e = args[1].long() * (sp.TILE[1] if name == "P3" else 1)
+        idx = (torch.arange(n, device="cuda") - e[:, None]) % n
+        flat = x.reshape(-1, n)
+        return lambda: torch.gather(flat, 1, idx)
+
+    out = {}
+    for name, (fn, plain) in probe_kernels().items():
+        out[name] = {}
+        for shape, args in cases[name].items():
+            big = args[0].numel() > 1 << 20
+            ms = cuda_ms(lambda: fn(*args), iters=20 if big else 200)
+            plain_ms = cuda_ms(lambda: plain(*args), iters=2, warmup=1)
+            lib_ms = cuda_ms(library(name, shape, args),
+                             iters=10 if big else 100)
+            if name == "P2":
+                tiles = args[1].numel()
+                moved = 2 * 4 * tiles * cp.CH + 4 * tiles
+            elif name == "P1":
+                moved = 2 * 4 * args[0].numel()
+            else:
+                moved = 2 * 4 * args[0].numel() + 4 * args[1].numel()
+            b_ms, b_by = bound(moved, 0)
+            out[name][shape] = {"ms": ms, "plain_ms": plain_ms,
+                                "library_ms": lib_ms, "bytes": moved,
+                                "bound_ms": b_ms, "bound_by": b_by}
+            log(f"[times] {name}, {shape}: kernel {ms:.4f} ms = "
+                f"{moved / ms / 1e9:.3f} TB/s of {moved / 1e6:.3f} MB "
+                f"(bound {b_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+                f"call {lib_ms:.4f} ms (CUDA events) | {card}")
+    return out
+
+
+def merge_peak_factor(case) -> float:
+    """Peak device bytes of one two-run ``merge_runs`` at the store shape
+    over the bytes of its inputs (keys and one counter)."""
+    from kmer_hasher_tpu_torch.index import count_store as cs
+
+    keys, _pay, bounds = case
+    na = int(bounds[1])
+    runs = [(keys[:na].clone(), torch.ones((na, 1), dtype=torch.int64,
+                                           device="cuda")),
+            (keys[na:].clone(), torch.ones((keys.shape[0] - na, 1),
+                                           dtype=torch.int64, device="cuda"))]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = cs.merge_runs(runs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return 1 + peak / (16 * keys.shape[0])
+
+
 def bound(bytes_moved: float, ops: float):
     """(least milliseconds the card could take, which limit binds)."""
     by, op = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return max(by, op) * 1e3, "bytes" if by >= op else "operations"
 
 
-PATHS = ("index", "merge_sort_index", "counting", "file", "threshold")
+PATHS = ("index", "merge_sort_index", "counting", "file", "threshold",
+         "probes", "spill")
 
 
 def main() -> None:
@@ -1214,6 +1606,10 @@ def main() -> None:
     cases = merge_cases(gen, np.random.default_rng(SEED + 3))
     worst_b3 = phase_kernels_merge(cases)
     cases = {n: cases[n] for n in ("last sort round", "store")}
+    gen_p = torch.Generator(device="cuda")
+    gen_p.manual_seed(SEED + 4)
+    p_cases = probe_cases(gen_p)
+    worst_p = phase_kernels_probes(p_cases)
     seq = make_sequence(rng, SEQ_LEN)
     reset_launches()
     _, t_k32 = phase_main(seq)
@@ -1229,13 +1625,21 @@ def main() -> None:
         more, fq, stats = phase_main_counting(genome, batches, Path(tmp))
         launches.update(more)
         launches["threshold"] = phase_main_threshold(fq)
-    by_path = [{p: launches[p][i] for p in PATHS} for i in (0, 1, 2)]
+        phase_card_vs_cpu_spill(batches, fq, Path(tmp))
+    launches["probes"] = phase_main_probes()
+    launches["spill"] = phase_main_spill(gen_p, card)
+    by_path = [{p: launches[p][i] for p in PATHS} for i in range(7)]
     swept = phase_hybrid_full_width(rng)
     phase_card_vs_cpu(seq)
     phase_card_vs_cpu_counting(genome, batches)
     b1_ms, b1_plain = phase_times(seq, card)
     b3_times = phase_times_merge(cases, card)
+    log(f"[times] merge_runs of two runs at the store shape peaks at "
+        f"{merge_peak_factor(cases['store']):.2f} x its inputs' bytes in "
+        f"device memory (the store's fold budget assumes 5) | {card}")
     del cases
+    p_times = phase_times_probes(p_cases, card)
+    del p_cases
     b2_ms, b2_plain = phase_times_counting(batches, card, stats)
     # least time for the same work: every input byte read once, every output
     # byte written once; B1 does ~4 integer ops per base of each window, B2
@@ -1297,7 +1701,25 @@ def main() -> None:
         "by_shape": {shape: dict(t, bound_ms=b3_bound[shape][0],
                                  bound_by=b3_bound[shape][1])
                      for shape, t in b3_times.items()},
-    }]}))
+    }] + [dict({
+        "name": title,
+        "route": "cuda",
+        "source": f"kmer_hasher_tpu_torch/csrc/{source}",
+        "replaces": f"tools/chip_probes/sort_probes.py:{line}",
+        "launches": by_path[i]["probes"],
+        "launches_by_path": by_path[i],
+        "max_abs_err": worst_p[name],
+        "shape": shape,
+        "by_shape": p_times[name],
+    }, **{key: p_times[name][shape][key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        for i, (name, title, source, line, shape) in enumerate((
+            ("P1", "P1 probe_copy", "probe_copy.cu", 41, "full"),
+            ("P2", "P2 probe_dyn_copy", "probe_dyn_copy.cu", 69,
+             "full, granule 1"),
+            ("P3", "P3 probe_roll (rows)", "probe_roll.cu", 112, "full"),
+            ("P4", "P4 probe_roll (flat)", "probe_roll.cu", 135, "full"),
+        ), start=3)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -11,8 +11,10 @@ Ported: ``count_kmers``, the flagship ``count_kmers_fq_sh_rp`` on one
 device, the per-base-threshold entries ``count_kmers_fq`` (kmer_tree
 store) and ``count_kmers_fq_sh`` over ``ops.scan_iter.threshold_scan``, and
 ``seq_kmer_depth`` in both semantics. Every store they fill merges its
-tiers through kernel B3. Still to come: ``budget_semantics="drop"`` and
-spill (the store refuses both), the packed upload forms and ``mesh=``.
+tiers through kernel B3; a store made with ``spill_bytes`` spills and
+rejoins its runs as the entries fill it, and ``count_kmers_fq`` takes
+``budget_semantics="drop"``. Still to come: the packed upload forms and
+``mesh=``.
 """
 from __future__ import annotations
 
@@ -394,8 +396,10 @@ def count_kmers_fq(path, k: int, min_q: int = 0, prefix_bits: int = 16,
     """``count.kmers.fq`` (src/kmer_hash.c:618-711): kmer_tree-backed
     canonical counting — spectra include the zero cells of allocated prefix
     blocks; optional soft memory budget (src/kmer_tree.c:57-67), which
-    raises MemoryError past it. ``budget_semantics="drop"`` (the
-    reference's silent drop) is not ported yet: the store refuses it.
+    raises MemoryError past it. ``budget_semantics="drop"`` is the
+    reference's silent-drop behaviour instead (src/kmer_tree.c:51-76): the
+    first ``max_size // block_bytes`` distinct prefixes to appear get
+    blocks, k-mers of later prefixes are dropped; it needs ``max_mem_gb``.
     ``device`` places a new store; a given ``store`` keeps its own."""
     if not 1 <= k <= MAX_K:
         raise ValueError("k must be a positive integer less than 1+MAX_K")

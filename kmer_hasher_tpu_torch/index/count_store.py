@@ -38,14 +38,33 @@ Count semantics match ``suffix_hash_n`` (src/suffix_hash.c:180-281): up to
 only in spectra: its dense blocks contribute their zero cells
 (src/kmer_tree.c:85-99), modelled by prefix-block accounting.
 
-Not ported yet: host/disk spill with the ranged fold
-(``_fold_spilled_ranged``), and ``budget_semantics="drop"``; the
-constructor refuses both.
+**Spill.** With ``spill_bytes`` set, whenever the resident runs occupy more
+than that on the device (8 bytes per key and 8 per counter, what they
+really take), the largest run leaves for host memory, or for one ``.npz``
+file under ``spill_dir``. A spilled run is its live rows, like any run:
+no padding, no dead tail. Device-to-host and host-to-device copies of a
+CUDA store go through two pinned staging buffers of a fixed size, reused
+for every spill and rejoin. A fold rejoins the spilled runs one at a time
+through B3, or, when the table is too large for one merge's workspace,
+**by key range** (:meth:`CountStore._fold_spilled_ranged`): every run goes
+to the host, splitters are taken at evenly spaced ranks of the largest
+run, and per range the ``searchsorted`` slice of every host run goes to the
+device, the slices merge two at a time through B3, and the pieces
+concatenate into the base table. :func:`_fold_budget_bytes` says when.
+
+**Drop.** ``budget_semantics="drop"`` (``mode="ktree"`` with
+``max_size_bytes``) is the reference's silent budget (src/kmer_tree.c:51-76):
+the first ``max_size // block bytes`` distinct prefixes to appear get
+blocks, k-mers of every later prefix are dropped and counted nowhere.
+Admission walks the host with numpy (a fidelity mode, no kernel): a raw
+stream admits in stream order, a prebuilt run in key order (the JAX
+package's PARITY deviation 7). The runs stay on the device.
 """
 from __future__ import annotations
 
+import os
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +74,93 @@ from ..ops import encode as enc
 from .position_index import resolve_device
 
 Run = Tuple[torch.Tensor, torch.Tensor]  # (sortable keys [n], counts [n, C])
+
+# Device bytes a two-run merge occupies at its peak, over the bytes of its
+# two inputs: counted from what merge_runs allocates per input row with one
+# counter (16 bytes) — the inputs, the concatenated keys (8), B3's merged
+# keys and payload (12), the gathered count rows (8), the neighbour add's
+# shifted copy, product and sum (24), two masks (2) and the compaction's
+# row indices and outputs (up to 24): 70-80 bytes. chip_smoke.py measures it
+# (4.60 at 7,000,000 + 4,000,000 rows on an H100 80GB HBM3).
+MERGE_PEAK_FACTOR = 5
+_STAGE_BYTES = 32 << 20  # each of the two pinned staging buffers
+
+
+def _fold_budget_bytes(dev: torch.device) -> int:
+    """Device bytes one merge of the spill rejoin may occupy, inputs and
+    workspace together. A rejoin whose largest merge would need more (its
+    input rows x MERGE_PEAK_FACTOR) goes by key range instead, in ranges
+    sized to fit. ``KMH_FOLD_BUDGET_BYTES`` sets it (read at call time;
+    tests force it tiny). The default is half the device's memory: the
+    other half is for the folded table itself, which the ranged fold holds
+    twice while it concatenates its pieces. A CPU store has no device
+    memory to protect and never goes ranged unless the variable says so."""
+    env = os.environ.get("KMH_FOLD_BUDGET_BYTES")
+    if env is not None:
+        return int(env)
+    if dev.type != "cuda":
+        return 1 << 62
+    return torch.cuda.get_device_properties(dev).total_memory // 2
+
+
+class _Staging:
+    """Host <-> device copies of a run's tensors. For a CUDA device they go
+    in chunks through two pinned host buffers, allocated at first use and
+    reused for every spill and rejoin: the copy of one chunk overlaps the
+    host's move of the other, and the run itself lives in ordinary (pageable)
+    host memory of exactly its size. For a CPU store both directions are
+    the identity."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self._bufs: Optional[list] = None
+        self._events: Optional[list] = None
+
+    def _pinned(self):
+        if self._bufs is None:
+            self._bufs = [torch.empty(_STAGE_BYTES, dtype=torch.uint8,
+                                      pin_memory=True) for _ in range(2)]
+            self._events = [torch.cuda.Event() for _ in range(2)]
+        return self._bufs, self._events
+
+    @staticmethod
+    def _chunks(n: int):
+        return [(a, min(a + _STAGE_BYTES, n))
+                for a in range(0, n, _STAGE_BYTES)]
+
+    def to_host(self, t: torch.Tensor) -> torch.Tensor:
+        if self.dev.type != "cuda":
+            return t
+        out = torch.empty(t.shape, dtype=t.dtype)
+        src = t.contiguous().reshape(-1).view(torch.uint8)
+        dst = out.reshape(-1).view(torch.uint8)
+        bufs, events = self._pinned()
+        chunks = self._chunks(src.numel())
+        for i in range(len(chunks) + 1):
+            if i < len(chunks):  # start chunk i on its way to buffer i % 2
+                a, b = chunks[i]
+                events[i % 2].synchronize()  # an earlier upload has left it
+                bufs[i % 2][: b - a].copy_(src[a:b], non_blocking=True)
+                events[i % 2].record()
+            if i:  # meanwhile move chunk i - 1 out of the other buffer
+                a, b = chunks[i - 1]
+                events[(i - 1) % 2].synchronize()
+                dst[a:b].copy_(bufs[(i - 1) % 2][: b - a])
+        return out
+
+    def to_device(self, t: torch.Tensor) -> torch.Tensor:
+        if self.dev.type != "cuda":
+            return t
+        out = torch.empty(t.shape, dtype=t.dtype, device=self.dev)
+        src = t.contiguous().reshape(-1).view(torch.uint8)
+        dst = out.reshape(-1).view(torch.uint8)
+        bufs, events = self._pinned()
+        for i, (a, b) in enumerate(self._chunks(src.numel())):
+            events[i % 2].synchronize()  # the buffer's last copy has left it
+            bufs[i % 2][: b - a].copy_(src[a:b])
+            dst[a:b].copy_(bufs[i % 2][: b - a], non_blocking=True)
+            events[i % 2].record()
+        return out
 
 
 def lsm_compact(runs: list, cap_of: Callable, merge_two: Callable) -> list:
@@ -152,8 +258,15 @@ class CountStore:
     table ``keys`` holds their sortable form, ``cnt`` the int64 count rows.
     ``timings`` accumulates the host seconds spent in tier merges and in
     folds, each ending in the sync that reads the run's length;
-    ``fold_merges`` counts the folds that were a merge of exactly two runs
-    (B3 runs once per tier merge and once per such fold).
+    ``fold_merges`` counts the two-run merges that folds made — a fold of
+    exactly two runs, each rejoin of a spilled run, each merge of two
+    slices in a ranged fold — so B3 runs ``tier_merges + fold_merges``
+    times. ``spills``, ``spill_s`` and ``spilled_rows`` account for the runs
+    that left the device, ``ranged_folds`` and ``ranges`` for the folds
+    that went by key range and the non-empty ranges they merged.
+
+    ``spill_bytes`` / ``spill_dir`` and ``budget_semantics`` are described
+    in the module's docstring.
     """
 
     def __init__(self, k: int, counts_n: int = 1, prefix_bits: int = 0,
@@ -170,12 +283,10 @@ class CountStore:
             raise ValueError(f"unknown mode {mode!r}")
         if budget_semantics not in ("error", "drop"):
             raise ValueError(f"unknown budget_semantics {budget_semantics!r}")
-        if budget_semantics == "drop":
-            raise NotImplementedError(
-                "budget_semantics='drop' is not ported yet")
-        if spill_bytes is not None or spill_dir is not None:
-            raise NotImplementedError(
-                "host/disk spill (spill_bytes, spill_dir) is not ported yet")
+        if budget_semantics == "drop" and (mode != "ktree"
+                                           or max_size_bytes is None):
+            raise ValueError("budget_semantics='drop' requires mode='ktree' "
+                             "and max_size_bytes")
         self.k = int(k)
         self.counts_n = int(counts_n)
         self.prefix_bits = int(prefix_bits)
@@ -196,19 +307,33 @@ class CountStore:
         self.mode = mode
         self.max_size_bytes = max_size_bytes
         self.budget_semantics = budget_semantics
+        self._admitted: Optional[np.ndarray] = None  # sorted uint64 prefixes
+        self._admit_frozen = False
         self.device = resolve_device(device)
-        self.keys = torch.zeros(0, dtype=torch.int64, device=self.device)
-        self.cnt = torch.zeros((0, self.counts_n), dtype=torch.int64,
-                               device=self.device)
+        self.keys, self.cnt = self._empty_table()
         self._total_added = np.zeros(self.counts_n, np.int64)
         self._pending: List[Tuple[torch.Tensor, int]] = []
         self._pending_n = 0
         self._runs: List[Run] = []
         # build a run once this many valid observations are pending
         self.run_build_size = 1 << 16
+        self.spill_bytes = spill_bytes
+        self.spill_dir = spill_dir
+        # runs off the device: ('mem', (keys, cnt) on the host) or
+        # ('file', path of an .npz with those two arrays)
+        self._spilled: List[Tuple[str, object]] = []
+        self._spilled_rows = 0
+        self._spill_seq = 0
+        self._staging = _Staging(self.device)
         self.timings = {"tier_merges": 0, "tier_merge_s": 0.0,
                         "tier_merge_rows": 0, "folds": 0, "fold_merges": 0,
-                        "fold_s": 0.0}
+                        "fold_s": 0.0, "spills": 0, "spill_s": 0.0,
+                        "spilled_rows": 0, "ranged_folds": 0, "ranges": 0}
+
+    def _empty_table(self) -> Run:
+        return (torch.zeros(0, dtype=torch.int64, device=self.device),
+                torch.zeros((0, self.counts_n), dtype=torch.int64,
+                            device=self.device))
 
     # -- adds -----------------------------------------------------------------
     @property
@@ -227,6 +352,13 @@ class CountStore:
         runs first. An eager add is a deferred add followed by a flush."""
         if not 0 <= source < self.counts_n:
             raise ValueError("source out of range")
+        if self.budget_semantics == "drop":
+            # a raw stream carries its true order, so admission here is the
+            # reference's per-k-mer allocation walk exactly
+            pref = self._prefixes(raw.reshape(-1))
+            v_h = valid.reshape(-1).cpu().numpy().astype(bool)
+            self._admit_prefixes(pref[v_h])
+            valid = torch.from_numpy(v_h & np.isin(pref, self._admitted))
         keys = enc.sortable_key(raw.to(self.device).reshape(-1)
                                 [valid.to(self.device).reshape(-1)])
         n = int(keys.shape[0])
@@ -250,12 +382,60 @@ class CountStore:
             raise ValueError("source out of range")
         if cnt.shape != (keys.shape[0], self.counts_n):
             raise ValueError("count rows do not match the keys")
+        keys, cnt = keys.to(self.device), cnt.to(self.device, torch.int64)
         self._total_added[source] += int(n_obs)
+        if self.budget_semantics == "drop" and keys.shape[0]:
+            keys, cnt = self._budget_filter_run(keys, cnt)
         if keys.shape[0]:
-            self._runs.append((keys.to(self.device),
-                               cnt.to(self.device, torch.int64)))
+            self._runs.append((keys, cnt))
             self._compact_tiers()
         return self
+
+    # -- ktree 'drop' budget semantics (src/kmer_tree.c:51-76) ----------------
+    @property
+    def _budget_blocks(self) -> int:
+        """How many dense prefix blocks the budget pays for."""
+        return int(self.max_size_bytes) // (4 << self.suffix_bits)
+
+    def _prefixes(self, raw: torch.Tensor) -> np.ndarray:
+        """Raw int64 patterns -> their prefixes (k-mer >> suffix_bits) as
+        unsigned numbers on the host."""
+        return (raw.cpu().numpy().view(np.uint64)
+                >> np.uint64(self.suffix_bits))
+
+    def _admit_prefixes(self, pref_stream: np.ndarray) -> None:
+        """Admit new prefixes, in first-occurrence order of ``pref_stream``,
+        until the block budget fills; a batch that brings more new prefixes
+        than there is room freezes the admitted set for ever (the reference
+        can never allocate another block once one was refused)."""
+        if self._admitted is None:
+            self._admitted = np.empty(0, np.uint64)
+        if self._admit_frozen:
+            return
+        uniq, first = np.unique(pref_stream, return_index=True)
+        fresh = ~np.isin(uniq, self._admitted)
+        new, first = uniq[fresh], first[fresh]
+        if not new.size:
+            return
+        new = new[np.argsort(first, kind="stable")]
+        space = self._budget_blocks - self._admitted.size
+        if new.size > space:
+            self._admit_frozen = True
+        self._admitted = np.union1d(self._admitted, new[:max(0, space)])
+
+    def _budget_filter_run(self, keys: torch.Tensor, cnt: torch.Tensor
+                           ) -> Run:
+        """Drop-mode filter of a run: admit its prefixes in KEY order (the
+        run has no stream order left) and strip the rows of prefixes without
+        a block; their observations come off ``total_added``, per source."""
+        pref = self._prefixes(enc.sortable_key(keys))
+        self._admit_prefixes(pref)
+        keep = np.isin(pref, self._admitted)
+        if keep.all():
+            return keys, cnt
+        keep_d = torch.from_numpy(keep).to(self.device)
+        self._total_added -= cnt[~keep_d].sum(dim=0).cpu().numpy()
+        return keys[keep_d], cnt[keep_d]
 
     def _build_runs(self) -> None:
         """Turn pending batches into sorted runs (one per source present)
@@ -282,18 +462,153 @@ class CountStore:
 
     def _compact_tiers(self) -> None:
         self._runs = lsm_compact(self._runs, _cap_class, self._merge_two)
+        self._spill_if_needed()
+
+    # -- host/disk spill ------------------------------------------------------
+    @property
+    def _row_bytes(self) -> int:
+        """Bytes of one row of a run: an int64 key and int64 counters."""
+        return 8 + 8 * self.counts_n
+
+    def _device_run_bytes(self) -> int:
+        return sum(int(r[0].shape[0]) for r in self._runs) * self._row_bytes
+
+    def _spill_run(self, run: Run) -> None:
+        """Move one run off the device: to host memory, or to an ``.npz``
+        file under ``spill_dir`` (removed when it is read back)."""
+        t0 = time.perf_counter()
+        keys, cnt = (self._staging.to_host(t) for t in run)
+        if self.spill_dir is not None:
+            os.makedirs(self.spill_dir, exist_ok=True)
+            path = os.path.join(
+                self.spill_dir,
+                f"kmh_spill_{id(self):x}_{self._spill_seq}.npz")
+            np.savez(path, keys=keys.numpy(), cnt=cnt.numpy())
+            self._spilled.append(("file", path))
+        else:
+            self._spilled.append(("mem", (keys, cnt)))
+        n = int(keys.shape[0])
+        self._spilled_rows += n
+        self._spill_seq += 1
+        self.timings["spills"] += 1
+        self.timings["spilled_rows"] += n
+        self.timings["spill_s"] += time.perf_counter() - t0
+
+    def _spill_if_needed(self) -> None:
+        """After every tier compaction: while the resident runs exceed
+        ``spill_bytes`` the largest leaves. The last run may leave too (a
+        flush seeds from a spilled run when none is resident)."""
+        if self.spill_bytes is None:
+            return
+        while self._runs and self._device_run_bytes() > self.spill_bytes:
+            self._runs.sort(key=lambda r: int(r[0].shape[0]))
+            self._spill_run(self._runs.pop())
+
+    def _take_spilled(self) -> Iterator[Run]:
+        """Every spilled run in turn as host tensors, each file removed as
+        it is read; the store has none from the first step on."""
+        spilled, self._spilled = self._spilled, []
+        self._spilled_rows = 0
+        for tag, payload in spilled:
+            if tag == "file":
+                with np.load(payload) as z:
+                    run = (torch.from_numpy(z["keys"]),
+                           torch.from_numpy(z["cnt"]))
+                os.remove(payload)
+            else:
+                run = payload
+            yield run
+
+    def _merge_in_fold(self, a: Run, b: Run) -> Run:
+        self.timings["fold_merges"] += 1
+        return merge_runs((a, b))
+
+    def _ranged_fold_needed(self, acc_rows: int) -> bool:
+        """True when the plain rejoin's last merge (all rows of the table
+        in, MERGE_PEAK_FACTOR times their bytes at its peak) would not fit
+        the fold budget."""
+        rows = acc_rows + self._spilled_rows
+        return (rows * self._row_bytes * MERGE_PEAK_FACTOR
+                > _fold_budget_bytes(self.device))
+
+    def _fold_spilled(self, acc: Optional[Run]) -> Run:
+        """Merge the spilled runs back into the accumulator one at a time
+        (on the device at any moment: the accumulator, one run and their
+        merge's workspace). With no accumulator the first run seeds it."""
+        for run in self._take_spilled():
+            run = tuple(self._staging.to_device(t) for t in run)
+            acc = run if acc is None else self._merge_in_fold(acc, run)
+        return acc
+
+    def _fold_spilled_ranged(self) -> Run:
+        """The out-of-core fold: every run is on the host (the caller
+        spilled the resident ones), and the table is rebuilt by key range.
+        Splitters are the keys at evenly spaced ranks of the largest run;
+        range r holds the keys in [splitter r-1, splitter r), the first
+        range everything below the first splitter and the last everything
+        from the last splitter up. Per range the slice of every host run
+        goes to the device and the slices merge two at a time through B3;
+        ranges are disjoint and ascending, so the pieces concatenate into
+        the sorted unique table. Repeated splitters give empty ranges.
+        Device bytes at the peak: the pieces so far, one range's merge
+        (within the fold budget) and, at the end, the concatenation."""
+        host_runs = list(self._take_spilled())
+        total_rows = sum(int(r[0].shape[0]) for r in host_runs)
+        per_range = max(1, _fold_budget_bytes(self.device)
+                        // (MERGE_PEAK_FACTOR * self._row_bytes))
+        n_ranges = max(1, -(-total_rows // per_range))
+        big = max(host_runs, key=lambda r: int(r[0].shape[0]))[0].numpy()
+        splitters = big[[min(len(big) - 1, (i * len(big)) // n_ranges)
+                         for i in range(1, n_ranges)]]
+        # sortable keys: their signed order on the host is the device's
+        cuts = [np.concatenate([[0], np.searchsorted(r[0].numpy(), splitters,
+                                                     side="left"),
+                                [r[0].shape[0]]]) for r in host_runs]
+        pieces = []
+        for r in range(n_ranges):
+            merged = None
+            for (keys, cnt), cut in zip(host_runs, cuts):
+                i0, i1 = int(cut[r]), int(cut[r + 1])
+                if i1 <= i0:
+                    continue
+                part = (self._staging.to_device(keys[i0:i1]),
+                        self._staging.to_device(cnt[i0:i1]))
+                merged = part if merged is None else self._merge_in_fold(
+                    merged, part)
+            if merged is not None:
+                pieces.append(merged)
+        self.timings["ranged_folds"] += 1
+        self.timings["ranges"] += len(pieces)
+        return (torch.cat([p[0] for p in pieces]),
+                torch.cat([p[1] for p in pieces]))
 
     def flush(self) -> "CountStore":
-        """Fold pending batches and all runs into the sorted base table."""
+        """Fold pending batches, all runs and all spilled runs into the
+        sorted base table."""
         self._build_runs()
-        if not self._runs:
+        if not self._runs and not self._spilled:
             return self
         t0 = time.perf_counter()
         runs = self._runs + ([(self.keys, self.cnt)] if self.n_rows else [])
         self._runs = []
-        self.keys, self.cnt = runs[0] if len(runs) == 1 else merge_runs(runs)
+        if self._spilled and self._ranged_fold_needed(
+                sum(int(r[0].shape[0]) for r in runs)):
+            # the rejoin goes out of core anyway: do not merge the resident
+            # runs into one accumulator first (that merge is the one the
+            # budget cannot hold) — every run goes to the host as it is
+            self.keys, self.cnt = self._empty_table()  # frees the base
+            while runs:
+                self._spill_run(runs.pop())
+            self.keys, self.cnt = self._fold_spilled_ranged()
+        else:
+            acc = None  # no resident run: the first spilled one seeds it
+            if len(runs) == 2:
+                acc = self._merge_in_fold(*runs)
+            elif runs:
+                acc = runs[0] if len(runs) == 1 else merge_runs(runs)
+            del runs
+            self.keys, self.cnt = self._fold_spilled(acc)
         self.timings["folds"] += 1
-        self.timings["fold_merges"] += int(len(runs) == 2)
         self.timings["fold_s"] += time.perf_counter() - t0
         self._check_budget()
         return self
@@ -303,8 +618,9 @@ class CountStore:
         the estimated dense-block footprint must stay under the cap. The
         reference stops allocating blocks and silently drops their k-mers;
         this raises after the fold that first exceeds."""
-        if self.max_size_bytes is None or self.mode != "ktree":
-            return
+        if (self.max_size_bytes is None or self.mode != "ktree"
+                or self.budget_semantics == "drop"):
+            return  # drop mode keeps the budget by prefix admission
         est = self.n_alloc_blocks() * 4 * (1 << self.suffix_bits)
         if est > self.max_size_bytes:
             raise MemoryError(
@@ -328,6 +644,8 @@ class CountStore:
         the keys of every run and of the base are sorted together and their
         groups counted; the tiers stay as they are. Progress meters use
         this."""
+        if self._spilled:  # their keys are on the host: fold instead
+            return self.n_unique
         self._build_runs()
         if not self._runs:
             return self.n_rows

@@ -6,7 +6,10 @@ The file format is the JAX package's, byte for byte in meaning: one
 seq_len, n_valid) with ``s_hi`` / ``s_lo`` (uint32) and ``s_pos`` (int32)
 trimmed to the live prefix; a count store holds its geometry, an optional
 resume cursor, and ``u_hi`` / ``u_lo`` / ``cnt`` (uint32) with
-``total_added`` (int64). A file saved by either package loads in the other.
+``total_added`` (int64); a ``budget_semantics="drop"`` store adds its
+``admitted`` prefixes (uint64) and the ``admit_frozen`` flag, so a resumed run
+drops exactly the same prefixes. A file saved by either package loads in the
+other. Saving folds the store first, spilled runs included.
 
 :func:`count_store_from_numpy` carries count state across: it takes the
 arrays of either package's file (or of a live JAX store) and gives a store
@@ -94,9 +97,12 @@ def save_count_store(store: CountStore, path, progress=None) -> None:
         "mode": store.mode, "n_unique": n,
         "max_size_bytes": store.max_size_bytes,
         "budget_semantics": store.budget_semantics,
-        "admit_frozen": False,
+        "admit_frozen": store._admit_frozen,
         "progress": progress,
     }
+    extra = {}
+    if store._admitted is not None:
+        extra["admitted"] = store._admitted
     raw = enc.sortable_key(store.keys).cpu().numpy().view(np.uint64)
     cnt = store.cnt.cpu().numpy()
     if n and int(cnt.max()) > np.iinfo(np.uint32).max:
@@ -105,28 +111,31 @@ def save_count_store(store: CountStore, path, progress=None) -> None:
         path, meta=json.dumps(meta),
         u_hi=(raw >> np.uint64(32)).astype(np.uint32),
         u_lo=raw.astype(np.uint32), cnt=cnt.astype(np.uint32),
-        total_added=store.total_added,
+        total_added=store.total_added, **extra,
     )
 
 
 def count_store_from_numpy(meta: dict, u_hi, u_lo, cnt, total_added,
-                           device="cuda") -> CountStore:
+                           device="cuda", admitted=None) -> CountStore:
     """A store on ``device`` from the JAX package's arrays: uint32 ``u_hi``
     / ``u_lo`` key lanes and ``cnt`` [n, counts_n] of the live rows, and
     ``total_added``. ``meta`` gives k and counts_n and, where present,
-    prefix_bits, suffix_bits, mode and max_size_bytes.
+    prefix_bits, suffix_bits, mode, max_size_bytes, budget_semantics and
+    admit_frozen; ``admitted`` is a drop store's admitted prefixes.
 
     The rows need not be sorted or distinct — the shard tables of a
     sharded store, one after the other, are neither in order nor, in
     general, free of repeats — so they are sorted and reduced here."""
-    if meta.get("budget_semantics", "error") != "error":
-        raise NotImplementedError(
-            "budget_semantics='drop' stores are not ported yet")
     store = CountStore(
         int(meta["k"]), counts_n=int(meta["counts_n"]),
         prefix_bits=int(meta.get("prefix_bits", 0)),
         suffix_bits=meta.get("suffix_bits"), mode=meta.get("mode", "sh"),
-        max_size_bytes=meta.get("max_size_bytes"), device=device)
+        max_size_bytes=meta.get("max_size_bytes"),
+        budget_semantics=meta.get("budget_semantics", "error"),
+        device=device)
+    if admitted is not None:
+        store._admitted = np.asarray(admitted).astype(np.uint64)
+        store._admit_frozen = bool(meta.get("admit_frozen", False))
     cnt = np.asarray(cnt).reshape(-1, store.counts_n).astype(np.int64)
     raw = _raw_from_lanes(u_hi, u_lo)
     if raw.shape[0] != cnt.shape[0]:
@@ -160,5 +169,6 @@ def load_count_store(path, device="cuda") -> CountStore:
         if meta.get("magic") != _MAGIC or kind not in (
                 "count_store", "sharded_count_store"):
             raise ValueError(f"{path} is not a kmer_hasher_tpu count store")
-        return count_store_from_numpy(meta, z["u_hi"], z["u_lo"], z["cnt"],
-                                      z["total_added"], device=device)
+        return count_store_from_numpy(
+            meta, z["u_hi"], z["u_lo"], z["cnt"], z["total_added"],
+            device=device, admitted=z["admitted"] if "admitted" in z else None)

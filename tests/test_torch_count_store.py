@@ -212,7 +212,9 @@ def test_folds_of_two_runs_are_counted_apart_from_tier_merges():
     assert t.n_unique == 49 and int(t.cnt.sum()) == 49
     assert set(t.timings) == {"tier_merges", "tier_merge_s",
                               "tier_merge_rows", "folds", "fold_merges",
-                              "fold_s"}
+                              "fold_s", "spills", "spill_s", "spilled_rows",
+                              "ranged_folds", "ranges"}
+    assert t.timings["spills"] == t.timings["ranged_folds"] == 0
 
 
 def test_lsm_policy_and_empty_store():
@@ -235,13 +237,20 @@ def test_constructor_checks():
         CountStore(21, mode="tree", device="cpu")
     with pytest.raises(ValueError):
         CountStore(21, prefix_bits=2, suffix_bits=40, device="cpu")
-    with pytest.raises(NotImplementedError):
-        CountStore(21, mode="ktree", max_size_bytes=1 << 20,
-                   budget_semantics="drop", device="cpu")
-    with pytest.raises(NotImplementedError):
-        CountStore(21, spill_bytes=1 << 20, device="cpu")
-    with pytest.raises(NotImplementedError):
-        CountStore(21, spill_dir="/tmp/x", device="cpu")
+    with pytest.raises(ValueError, match="budget_semantics"):
+        CountStore(21, budget_semantics="keep", device="cpu")
+    for kw in (dict(mode="sh", max_size_bytes=1 << 20), dict(mode="ktree")):
+        with pytest.raises(ValueError, match="requires"):  # as the JAX store
+            CountStore(21, budget_semantics="drop", device="cpu", **kw)
+        with pytest.raises(ValueError, match="requires"):
+            JaxStore(21, budget_semantics="drop", **kw)
+    drop = CountStore(21, mode="ktree", max_size_bytes=1 << 20,
+                      budget_semantics="drop", device="cpu")
+    assert drop.budget_semantics == "drop" and not drop._admit_frozen
+    spill = CountStore(21, spill_bytes=1 << 20, spill_dir="spill-here",
+                       device="cpu")
+    assert (spill.spill_bytes, spill.spill_dir) == (1 << 20, "spill-here")
+    assert spill.flush().n_unique == 0  # nothing spilled, no directory made
     t = CountStore(5, device="cpu")
     with pytest.raises(ValueError):
         t.add_kmers(torch.zeros(1, dtype=torch.int64),

@@ -1,5 +1,5 @@
-"""The CUDA kernels B1, B2 and B3 against their plain PyTorch versions, and
-the paths through them against the CPU, on the card.
+"""The CUDA kernels B1, B2, B3 and P1–P4 against their plain PyTorch versions,
+and the paths through them against the CPU, on the card.
 
 Needs a CUDA device: marked ``cuda`` and skipped (visibly) without one.
 Imports neither JAX nor kmer_hasher_tpu, so it runs on a machine with
@@ -17,6 +17,7 @@ from kmer_hasher_tpu_torch import counting
 from kmer_hasher_tpu_torch.index import count_store
 from kmer_hasher_tpu_torch.ops import cuda_encode, cuda_merge, cuda_scan
 from kmer_hasher_tpu_torch.ops import merge_sort
+from kmer_hasher_tpu_torch.probes import cuda_probes, sort_probes
 from kmer_hasher_tpu_torch.qll import Q_TO_LL
 
 pytestmark = pytest.mark.cuda
@@ -350,3 +351,169 @@ def test_threshold_entries_on_card_match_cpu(cuda, entry, tmp_path,
         assert torch.equal(
             api.seq_kmer_depth(g, probe, k, semantics=semantics).cpu(),
             api.seq_kmer_depth(c, probe, k, semantics=semantics))
+
+
+# -- the probe kernels P1-P4 ---------------------------------------------------
+
+def rand32(rng, shape):
+    return torch.from_numpy(rng.integers(
+        0, 2 ** 32, size=shape, dtype=np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 3, 5, 1])
+@pytest.mark.parametrize("skew", [0, 1])
+def test_p1_kernel_matches_plain(cuda, n, skew):
+    """16-byte path, the n % 4 tail, and a view that starts 4 bytes into a
+    tensor (no 16-byte alignment: the 4-byte path)."""
+    x = rand32(np.random.default_rng(n), n + skew).to(cuda)[skew:]
+    before = cuda_probes.copy.launches
+    got = cuda_probes.copy(x)
+    torch.cuda.synchronize()
+    assert cuda_probes.copy.launches == before + 1
+    assert torch.equal(got, cuda_probes.plain_copy(x))
+    assert got.data_ptr() != x.data_ptr()
+
+
+@pytest.mark.parametrize("granule", [1024, 8, 1])
+def test_p2_kernel_matches_plain(cuda, granule):
+    n = 1 << 20
+    x = rand32(np.random.default_rng(granule), n).to(cuda)
+    for offs in (sort_probes.reference_offsets(n, granule),
+                 sort_probes.spread_offsets(n, granule, n // cuda_probes.CH),
+                 np.array([0, n - cuda_probes.CH, 1, 2, 3, 5], np.int32)):
+        offs = torch.from_numpy(offs).to(cuda)
+        before = cuda_probes.dyn_copy.launches
+        got = cuda_probes.dyn_copy(x, offs)
+        torch.cuda.synchronize()
+        assert cuda_probes.dyn_copy.launches == before + 1
+        assert torch.equal(got, cuda_probes.plain_dyn_copy(x, offs))
+
+
+def test_p2_reads_nothing_outside_x(cuda):
+    """An offset outside [0, n - CH] is the caller's error; the kernel still
+    reads no element outside x: those come out 0."""
+    n = 2 * cuda_probes.CH
+    x = rand32(np.random.default_rng(0), n).to(cuda)
+    offs = torch.tensor([n - 5, -3], dtype=torch.int32, device=cuda)
+    got = cuda_probes.dyn_copy(x, offs).cpu().reshape(2, -1)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0, :5], x[-5:].cpu()) and not got[0, 5:].any()
+    assert not got[1, :3].any()
+    assert torch.equal(got[1, 3:], x[: cuda_probes.CH - 3].cpu())
+
+
+@pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("tile", [(64, 128), (8, 16), (1, 4)])
+def test_p3_p4_kernel_matches_plain(cuda, tile, flat):
+    rng = np.random.default_rng(tile[0] + flat)
+    n = tile[0] * tile[1]
+    shifts = np.concatenate([
+        [0, 1, n - 1, n, n + 3, -1, -n - 5, 2 ** 31 - 1, -2 ** 31, 5, 777],
+        rng.integers(-3 * n, 3 * n, size=200)]).astype(np.int32)
+    x = rand32(rng, (len(shifts),) + tile).to(cuda)
+    sh = torch.from_numpy(shifts).to(cuda)
+    fn, plain = ((cuda_probes.roll_flat, cuda_probes.plain_roll_flat) if flat
+                 else (cuda_probes.roll_rows, cuda_probes.plain_roll_rows))
+    before = fn.launches
+    got = fn(x, sh)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, plain(x, sh))
+    one = fn(x[3], sh[3:4])  # a single tile, as the TPU probe ran it
+    assert torch.equal(one, got[3])
+
+
+def test_probes_reject_what_they_do_not_take(cuda):
+    x = torch.zeros((4, 64, 128), dtype=torch.int32, device=cuda)
+    sh = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        cuda_probes.copy(x.float())
+    with pytest.raises(ValueError):
+        cuda_probes.copy(x.transpose(1, 2))
+    with pytest.raises(ValueError):
+        cuda_probes.roll_rows(x, sh.cpu())
+    with pytest.raises(ValueError):  # 3 elements: no multiple of 4
+        cuda_probes.roll_flat(x[:, :1, :3].contiguous(), sh)
+    with pytest.raises(ValueError):  # a tile above 32 KB
+        cuda_probes.roll_flat(x.reshape(2, 128, 128), sh[:2])
+    with pytest.raises(ValueError):
+        cuda_probes.dyn_copy(x.reshape(-1), sh.cpu())
+
+
+def test_probe_entry_point_on_the_card(cuda, capsys):
+    res = sort_probes.run(20, device=cuda)
+    out = capsys.readouterr().out
+    assert out.count("ok=True") == 14 and "ok=False" not in out
+    assert res["E1"]["gbs"] > 0
+
+
+# -- spill, the ranged fold and drop on the card -------------------------------
+
+def spill_batches(seed, k, n_batches=8, size=40_000):
+    rng = np.random.default_rng(seed)
+    top = (1 << (2 * k)) - 1
+    pool = rng.integers(0, top, size=100_000, dtype=np.uint64, endpoint=True)
+    pool[0] = top
+    for b in range(n_batches):
+        idx = rng.integers(0, len(pool), size=size)
+        idx[0] = 0
+        yield torch.from_numpy(pool[idx].view(np.int64)), b % 2
+
+
+@pytest.mark.parametrize("how", ["memory", "disk", "ranged"])
+@pytest.mark.parametrize("k", [21, 32])
+def test_spilled_store_on_card_matches_cpu(cuda, k, how, tmp_path,
+                                           monkeypatch):
+    """A card store that spills (through the pinned staging buffers, several
+    chunks per run) and rejoins, one run at a time or by key range, equals
+    the CPU's store and an eager card store, bitwise."""
+    monkeypatch.setattr(count_store, "_STAGE_BYTES", 1 << 16)
+    if how == "ranged":
+        monkeypatch.setenv("KMH_FOLD_BUDGET_BYTES", str(1 << 20))
+    stores = []
+    for dev in (cuda, "cpu"):
+        st = api.CountStore(
+            k, counts_n=2, spill_bytes=1 << 20, device=dev,
+            spill_dir=str(tmp_path / str(dev)) if how == "disk" else None)
+        st.run_build_size = 1 << 15
+        before = cuda_merge.merge.launches
+        for raw, source in spill_batches(k, k):
+            st.add_kmers(raw, torch.ones_like(raw, dtype=torch.bool),
+                         source=source, defer=True)
+        assert st.timings["spills"] >= 2
+        st.flush()
+        tm = st.timings
+        assert tm["ranged_folds"] == int(how == "ranged")
+        if how == "ranged":
+            assert tm["ranges"] >= 4
+        if dev == cuda:
+            assert st.keys.is_cuda and cuda_merge.merge.launches == (
+                before + tm["tier_merges"] + tm["fold_merges"])
+        stores.append(st)
+    g, c = stores
+    eager = api.CountStore(k, counts_n=2, device=cuda)
+    for raw, source in spill_batches(k, k):
+        eager.add_kmers(raw, torch.ones_like(raw, dtype=torch.bool),
+                        source=source)
+    for other in (c, eager):
+        assert torch.equal(g.keys.cpu(), other.keys.cpu())
+        assert torch.equal(g.cnt.cpu(), other.cnt.cpu())
+        np.testing.assert_array_equal(g.total_added, other.total_added)
+    assert not list(tmp_path.glob("*/kmh_spill_*"))
+
+
+def test_drop_store_on_card_matches_cpu(cuda, tmp_path):
+    rng = np.random.default_rng(8)
+    path, _probe = threshold_file(tmp_path, rng, 11)
+    kw = dict(mode="ktree", prefix_bits=10, suffix_bits=12,
+              max_size_bytes=300 * (4 << 12), budget_semantics="drop")
+    stores = [api.count_kmers_fq(path, k=11, min_q=12,
+                                 store=api.CountStore(11, device=dev, **kw))
+              for dev in (cuda, "cpu")]
+    g, c = stores
+    assert g.keys.is_cuda and g._admit_frozen and g.n_alloc_blocks() == 300
+    assert torch.equal(g.keys.cpu(), c.keys) and torch.equal(g.cnt.cpu(), c.cnt)
+    np.testing.assert_array_equal(g.total_added, c.total_added)
+    np.testing.assert_array_equal(g._admitted, c._admitted)
+    np.testing.assert_array_equal(api.kmer_spectrum(g, 50),
+                                  api.kmer_spectrum(c, 50))

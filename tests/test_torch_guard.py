@@ -57,6 +57,33 @@ assert len(calls) == 3 and idx2.n_valid == idx.n_valid  # 128 windows, Lt 16
 assert (idx2.s_pos[: idx.n_valid] == idx.s_pos[: idx.n_valid]).all()
 for name in ("ops.merge_sort", "ops.cuda_merge"):
     assert "kmer_hasher_tpu_torch." + name in sys.modules, name
+# the probe entry on the CPU, a store that spills to memory and to disk
+# and folds by key range, and a drop-mode store
+import contextlib, io
+from kmer_hasher_tpu_torch.probes import sort_probes
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    sort_probes.main(["14", "--device", "cpu"])
+assert out.getvalue().count("ok=True") == 14, out.getvalue()
+import torch
+os.environ["KMH_FOLD_BUDGET_BYTES"] = "2048"
+raw = torch.arange(3000, dtype=torch.int64) * 977 % 2003
+with tempfile.TemporaryDirectory() as d:
+    for spill_dir in (None, d):
+        sp = api.CountStore(9, spill_bytes=1024, spill_dir=spill_dir,
+                            device="cpu")
+        sp.run_build_size = 256
+        for part in raw.split(500):
+            sp.add_kmers(part, torch.ones(500, dtype=torch.bool), defer=True)
+        assert sp.timings["spills"] >= 2
+        assert sp.n_unique == 2003 and sp.timings["ranged_folds"] == 1
+    assert not os.listdir(d)
+del os.environ["KMH_FOLD_BUDGET_BYTES"]
+dr = api.CountStore(4, mode="ktree", prefix_bits=4, suffix_bits=4,
+                    max_size_bytes=128, budget_semantics="drop", device="cpu")
+dr.add_kmers(torch.tensor([0x12, 0x25, 0x31, 0x13]), torch.ones(4, dtype=torch.bool))
+assert sorted(dr.counts_dict()) == [0x12, 0x13, 0x25] and dr._admit_frozen
+for name in ("probes.sort_probes", "probes.cuda_probes", "probes._common"):
+    assert "kmer_hasher_tpu_torch." + name in sys.modules, name
 import chip_smoke  # the smoke script's own imports (it runs only as main)
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
@@ -79,7 +106,8 @@ def test_sources_name_no_jax():
     sources = list((REPO / "kmer_hasher_tpu_torch").rglob("*.py"))
     assert len(sources) >= 20
     names = {p.name for p in sources}
-    assert {"merge_sort.py", "cuda_merge.py"} <= names
+    assert {"merge_sort.py", "cuda_merge.py", "cuda_probes.py",
+            "sort_probes.py"} <= names
     for path in sources + [REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             s = line.strip()
@@ -111,6 +139,11 @@ CALLS = {
     "count_kmers_fq": lambda api, ck, p: api.count_kmers_fq(p["fq"], k=5),
     "count_kmers_fq_sh": lambda api, ck, p: api.count_kmers_fq_sh(
         p["fq"], k=5),
+    "probes.sort_probes.run": lambda api, ck, p: __import__(
+        "kmer_hasher_tpu_torch.probes.sort_probes", fromlist=["run"]).run(14),
+    "probes.sort_probes.main": lambda api, ck, p: __import__(
+        "kmer_hasher_tpu_torch.probes.sort_probes",
+        fromlist=["main"]).main(["14"]),
     "load_index": lambda api, ck, p: ck.load_index(p["index"]),
     "load_count_store": lambda api, ck, p: ck.load_count_store(p["store"]),
     "index_from_numpy": lambda api, ck, p: ck.index_from_numpy(

@@ -282,9 +282,11 @@ def test_threshold_argument_checks(files):
             entry(path, k=33, device="cpu")
         with pytest.raises(ValueError):
             entry(path, k=0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        api.count_kmers_fq(path, k=5, max_mem_gb=1, budget_semantics="drop",
-                           device="cpu")
+    drop = api.count_kmers_fq(path, k=5, max_mem_gb=1,
+                              budget_semantics="drop", device="cpu")
+    assert drop.budget_semantics == "drop" and drop.n_unique > 0
+    with pytest.raises(ValueError, match="requires"):  # no budget to keep
+        api.count_kmers_fq(path, k=5, budget_semantics="drop", device="cpu")
     with pytest.raises(MemoryError):
         st = api.CountStore(5, mode="ktree", prefix_bits=4, suffix_bits=6,
                             max_size_bytes=64, device="cpu")
