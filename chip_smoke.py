@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the position-index path
 (also through the merge sort behind KMH_MERGE_SORT=1), the quality-filtered
-counting path, the per-base-threshold entries, the sort-design probes and
-the count store's spill regime with its ranged out-of-core fold, end to end.
+counting path, the per-base-threshold entries, the sort-design probes of
+both rounds, the count store's spill regime with its ranged out-of-core
+fold, and the command line over the native reader, end to end.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -19,7 +20,12 @@ is nonzero:
              1,024 / 8 / 1, rotation by device-known shifts; at the TPU
              probes' shapes and at 2^26 elements) against their plain
              PyTorch versions on the card, bitwise, at the shapes the main
-             paths launch them with;
+             paths launch them with; the round-3 probe kernels P5-P8 (row
+             windows copied in step order, also with write windows made to
+             overlap; a gather of 2 KB records; P2's copies through
+             cp.async; a gather from a table in shared memory; at the TPU
+             probes' shapes, at 2^26 elements and on edge inputs) the same
+             way;
 4. main (index) — make_kmer_hash(k=32) of a 40,000,000-base sequence,
              kmer_pos(2|8), the full pair drain, then a k=21 index and
              seq_kmer_pos with a 1,000,000-base query, with checks;
@@ -40,11 +46,29 @@ is nonzero:
              CPU's stores; then 4 full-width batches with stress qualities,
              where hybrid flags reads and re-scans them in f64, against
              exact. Kernel launches are counted per path (index, merge-sort
-             index, counting, file, threshold, probes, spill), set to 0 just
-             before each and read just after;
+             index, counting, file, threshold, probes, spill, probes_r3,
+             cli), set to 0 just before each and read just after;
    main (probes) — python -m kmer_hasher_tpu_torch.probes.sort_probes at
              log_n 26 through its entry point: E1 (P1), E2 at three granules
              (P2), E3 (P3), E3b (P4), E4 and E5 (plain sorts);
+   main (probes r3) — python -m kmer_hasher_tpu_torch.probes.sort_probes_r3
+             at log_n 26 through its entry point: R1 and R5 (plain), R2 at
+             512 and 8 rows (P5), R2b (P6), R4 (P8, beside P1), R3 at two
+             granules (P7, beside P2);
+   main (cli) — the counting cell's reads written as one FASTQ file, then in
+             a subprocess python -m kmer_hasher_tpu_torch count (-k 21
+             --min-q 20 --ll-mode hybrid): the reader must be the native
+             one, the saved table equal to the staged store's, bitwise;
+             spectrum and depth of that file through main(argv); in
+             subprocesses again, on the first 50,000 reads a run cut by
+             --max-reads with --checkpoint-every under KMH_NATIVE_IO=0 (the
+             pure-Python reader) and resumed with --resume under the native
+             reader equals the uncut native run; index -k 32 / tables and
+             index -k 21 / query through main(argv) on a FASTA of the
+             sequence's first 4,000,000 bases equal the in-process results;
+             in-process, with launches counted, the file entry over the
+             same file (path cli), with its reads/s and the parse / copy /
+             wait split;
    main (spill) — the full-corpus regime of the JAX package's
              tools/chip_probes/spill_regime.py: 244 batches x 29,696
              uniform-random 151-base reads, k=21, min_q=20, through
@@ -57,10 +81,12 @@ is nonzero:
 6. card vs CPU — index tables for k in {16, 21, 32}; counting in all
              three likelihood modes and a two-source store; a spilled store
              (memory and disk), a ranged fold and a drop-mode
-             count_kmers_fq, bitwise;
+             count_kmers_fq, bitwise; the count verb with --device cpu on a
+             small file;
 7. times   — B1, B2 and B3 vs plain (B3 also beside torch.sort of the
              concatenated keys, the one library call that computes a
-             merge), P1-P4 vs plain and vs one library call each,
+             merge), P1-P8 vs plain and vs one library call each where one
+             exists,
              build_index_arrays with the flag off and on, the index
              path, one threshold_scan batch, and the counting rates E2E /
              FUSED / FSM with the share of tier merges, of the fold, and
@@ -117,6 +143,10 @@ VARIANTS = {  # B2's three instantiations, as cuda_scan.scan selects them
 }
 # the probes: the TPU scripts' size and the full-card size
 PROBE_REF_LOG_N, PROBE_LOG_N = 24, 26
+GATHER_REF_LOG_N = 22  # the TPU probe's index count for P8
+CLI_MIN_READS = 500_000  # the file's size where the temporary directory is small
+CLI_CUT_READS, CLI_CKPT_EVERY = 30_000, 16_384
+CLI_REF_LEN = 4_000_000  # the index verbs' FASTA: holds the repeat and the query
 # the spill regime of tools/chip_probes/spill_regime.py in the JAX package
 SPILL_BATCHES, SPILL_BYTES, SPILL_FOLD_BUDGET = 244, 3 << 29, 3 << 30
 SPILL_MIN_DISTINCT = 500_000_000
@@ -736,14 +766,16 @@ def draw_reads(genome: torch.Tensor, gen, rows: int):
 
 
 def counted_wrappers():
-    """The seven kernels' wrappers in the order B1, B2, B3, P1, P2, P3, P4."""
+    """The eleven kernels' wrappers in the order B1, B2, B3, P1 ... P8."""
     from kmer_hasher_tpu_torch.ops import cuda_encode as b1
     from kmer_hasher_tpu_torch.ops import cuda_merge as b3
     from kmer_hasher_tpu_torch.ops import cuda_scan as b2
     from kmer_hasher_tpu_torch.probes import cuda_probes as cp
+    from kmer_hasher_tpu_torch.probes import cuda_probes_r3 as cp3
 
     return (b1.encode, b2.scan, b3.merge, cp.copy, cp.dyn_copy, cp.roll_rows,
-            cp.roll_flat)
+            cp.roll_flat, cp3.dyn_copy_2d, cp3.small_copy, cp3.async_copy,
+            cp3.smem_gather)
 
 
 def reset_launches():
@@ -752,7 +784,7 @@ def reset_launches():
 
 
 def read_launches():
-    """(B1, B2, B3, P1, P2, P3, P4) launches since the last reset."""
+    """(B1, B2, B3, P1, ..., P8) launches since the last reset."""
     return tuple(w.launches for w in counted_wrappers())
 
 
@@ -775,15 +807,24 @@ def store_on_cpu(store):
 
 
 def write_fastq(path: Path, batches, n_reads: int) -> None:
-    """The first ``n_reads`` reads of the staged batches as 4-line FASTQ."""
+    """The first ``n_reads`` reads of the staged batches as 4-line FASTQ:
+    fixed-width records ("@r", bases, "+", qualities) laid out with numpy,
+    a batch at a time."""
+    head, mid = np.frombuffer(b"@r\n", np.uint8), np.frombuffer(b"\n+\n",
+                                                                np.uint8)
     with open(path, "wb") as f:
         left = n_reads
         for seq, qual, _len, _hq in batches:
             s, q = seq[:left].cpu().numpy(), qual[:left].cpu().numpy()
-            for i in range(s.shape[0]):
-                f.write(b"@r\n" + s[i].tobytes() + b"\n+\n"
-                        + q[i].tobytes() + b"\n")
-            left -= s.shape[0]
+            rows, width = s.shape
+            rec = np.empty((rows, 3 + width + 3 + width + 1), np.uint8)
+            rec[:, :3] = head
+            rec[:, 3: 3 + width] = s
+            rec[:, 3 + width: 6 + width] = mid
+            rec[:, 6 + width: 6 + 2 * width] = q
+            rec[:, -1] = ord("\n")
+            f.write(rec.tobytes())
+            left -= rows
             if left <= 0:
                 return
 
@@ -914,6 +955,10 @@ def phase_main_counting(genome: torch.Tensor, batches, tmp: Path):
             f"its store merged two runs {two_run_merges(st)} times")
     if st.device.type != "cuda":
         raise AssertionError("the file entry did not run on the card")
+    if st.timings["reader"] != "native":
+        raise AssertionError(
+            f"the file entry read through the {st.timings['reader']} reader; "
+            f"the native parser says: {native_build_error()}")
     want = api.CountStore(k)
     cut = [tuple(a[:FILE_READS - i * ROWS] for a in b)
            for i, b in enumerate(batches[: -(-FILE_READS // ROWS)])]
@@ -928,13 +973,21 @@ def phase_main_counting(genome: torch.Tensor, batches, tmp: Path):
                 and (st.total_added == other.total_added).all()):
             raise AssertionError(f"file count differs from {what}")
     log(f"[main] count_kmers_fq_sh_rp of a {FILE_READS:,}-read FASTQ file "
-        f"(pure-Python reader, pinned copies): {st.n_unique:,} distinct, "
+        f"({st.timings['reader']} reader, uploads through pinned copies): "
+        f"{st.n_unique:,} distinct, "
         f"equal to the same reads staged on the card; checkpoint round "
         f"trip exact; {t_file:.3f} s; B1 launches {b1_file}, B2 launches "
         f"{b2_file}, B3 launches {b3_file}")
     launches = {"counting": n_main, "file": n_file}
     return launches, fq, {"wall": wall, "timings": dict(tm),
-                          "n_reads": n_reads, "flagged": flagged}
+                          "n_reads": n_reads, "flagged": flagged,
+                          "store": store, "stretch": stretch, "depth": depth}
+
+
+def native_build_error() -> str:
+    from kmer_hasher_tpu_torch.io import native
+
+    return native.build_error() or "no build error"
 
 
 def phase_main_threshold(fq: Path):
@@ -1305,10 +1358,11 @@ def phase_main_probes():
     launches = read_launches()
     # every probe line is one check launch plus one timing's launches
     per = 1 + _common.calls_per_timing(torch.device("cuda"))
-    want = (0, 0, 0, per, 2 * len(sort_probes.GRANULES) * per, per, per)
+    want = (0, 0, 0, per, 2 * len(sort_probes.GRANULES) * per, per, per,
+            0, 0, 0, 0)
     if launches != want:
-        raise AssertionError(f"the probe entry launched (B1, B2, B3, P1, P2, "
-                             f"P3, P4) {launches}, want {want}")
+        raise AssertionError(f"the probe entry launched (B1, B2, B3, P1, ..., "
+                             f"P8) {launches}, want {want}")
     lines = 2 + 2 * len(res["E2"]) + 1 + len(res["E4"]) + len(res["E5"])
     log(f"[main] probes: sort_probes at log_n {PROBE_LOG_N} through its "
         f"entry point, {lines} lines, all ok (a probe that is not raises), "
@@ -1317,6 +1371,520 @@ def phase_main_probes():
         f"{launches[5]}, P4 {launches[6]}: per line 1 check + "
         f"{per - 1} timed")
     return launches
+
+
+# -- the round-3 probes -------------------------------------------------------
+
+def probe_r3_cases(gen) -> dict:
+    """P5-P8's inputs on the card, by kernel and shape name. "ref" shapes
+    are the TPU probes' (2^24 elements; 64 steps; 4,096 records; 2^22
+    indices), "full" the full-card ones (2^26 elements, every window, record
+    and tile once), the others edge inputs: write windows made to overlap,
+    steps outside x, a view off the 16-byte boundary, indices outside the
+    table."""
+    from kmer_hasher_tpu_torch.probes import cuda_probes as cp
+    from kmer_hasher_tpu_torch.probes import cuda_probes_r3 as cp3
+    from kmer_hasher_tpu_torch.probes import sort_probes as sp
+    from kmer_hasher_tpu_torch.probes import sort_probes_r3 as sp3
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a).astype(np.int32)).cuda()
+
+    n_ref, n_full = 1 << PROBE_REF_LOG_N, 1 << PROBE_LOG_N
+    x = rand32(gen, (n_full,))
+    x2, x2_ref = x.reshape(-1, cp3.COLS), x[:n_ref].reshape(-1, cp3.COLS)
+    rows_ref, rows_full = x2_ref.shape[0], x2.shape[0]
+    rng = np.random.default_rng(SEED + 5)
+    cases = {"P5": {}, "P6": {}, "P7": {}, "P8": {}}
+    for r in sp3.ROWS_PER_COPY:
+        cases["P5"][f"ref, R={r}"] = (x2_ref, dev(
+            sp3.reference_row_offsets(rows_ref, r, sp3.REF_STEPS)), r)
+        cases["P5"][f"full, R={r}"] = (x2, dev(
+            sp3.spread_row_offsets(rows_full, r)), r)
+    # 4,096 steps of 512 rows inside 20,000 rows: about a hundred write
+    # windows over every row; then chains one row apart and repeats
+    cases["P5"]["overlapping, R=512"] = (x2_ref, dev(
+        rng.integers(0, 20_000, size=4096)), 512)
+    cases["P5"]["chains and repeats, R=130"] = (x2_ref, dev(
+        np.concatenate([np.arange(3000) % 700, np.full(50, 77)])), 130)
+    cases["P5"]["steps outside x, R=200"] = (x2_ref, dev(
+        [0, 100, rows_ref - 200, -1, rows_ref - 199, 2 ** 31 - 1, 300,
+         -2 ** 31, rows_ref, 150]), 200)
+    cases["P6"]["ref"] = (x2_ref, dev(sp3.reference_row_offsets(
+        rows_ref, cp3.SMALL_ROWS, sp3.REF_RECORDS)))
+    cases["P6"]["full"] = (x2, dev(sp3.spread_row_offsets(
+        rows_full, cp3.SMALL_ROWS)))
+    cases["P6"]["records outside x"] = (x2_ref, dev(
+        [0, rows_ref - 4, rows_ref - 3, -1, 5, 2 ** 31 - 1, -2 ** 31, 6, 6]))
+    for g in sp3.GRANULES:
+        cases["P7"][f"ref, granule {g}"] = (x[:n_ref], dev(
+            sp.reference_offsets(n_ref, g)))
+        cases["P7"][f"full, granule {g}"] = (x, dev(
+            sp.spread_offsets(n_full, g, n_full // cp.CH)))
+    off1 = x[1: n_ref + 1]  # a view off the 16-byte boundary
+    cases["P7"]["a view off the 16-byte boundary"] = (off1, dev(
+        np.concatenate([[0, n_ref - cp.CH, 1, 2, 3],
+                        sp.reference_offsets(n_ref, 1)])))
+    tab = rand32(gen, (cp3.TABLE // cp3.COLS, cp3.COLS))
+    for name, n in (("ref", 1 << GATHER_REF_LOG_N), ("full", n_full)):
+        cases["P8"][name] = (tab, torch.randint(
+            0, cp3.TABLE, (n // cp3.COLS, cp3.COLS), generator=gen,
+            device="cuda", dtype=torch.int32))
+    idx = torch.randint(-5000, 5000, (1 << 16,), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    idx[:6] = torch.tensor([0, 1023, 1024, -1, 2 ** 31 - 1, -2 ** 31],
+                           dtype=torch.int32)
+    cases["P8"]["indices outside the table"] = (tab, idx)
+    return cases
+
+
+def probe_r3_kernels():
+    """name -> (wrapper, plain version)."""
+    from kmer_hasher_tpu_torch.probes import cuda_probes_r3 as cp3
+
+    return {"P5": (cp3.dyn_copy_2d, cp3.plain_dyn_copy_2d),
+            "P6": (cp3.small_copy, cp3.plain_small_copy),
+            "P7": (cp3.async_copy, cp3.plain_async_copy),
+            "P8": (cp3.smem_gather, cp3.plain_smem_gather)}
+
+
+def phase_kernels_probes_r3(cases: dict) -> dict:
+    """P5-P8 against their plain versions on the same CUDA tensors,
+    bitwise; P5's reference and overlapping inputs also against numpy's
+    loop over row numbers. Returns the worst max_abs_err by kernel."""
+    from kmer_hasher_tpu_torch.probes import cuda_probes as cp
+    from kmer_hasher_tpu_torch.probes import cuda_probes_r3 as cp3
+    from kmer_hasher_tpu_torch.probes import sort_probes_r3 as sp3
+
+    worst = {}
+    overlaps = {}
+    for name, (fn, plain) in probe_r3_kernels().items():
+        worst[name] = 0.0
+        for shape, args in cases[name].items():
+            got = fn(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            worst[name] = max(worst[name], err)
+            if err or got.shape != want.shape:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {shape}, max_abs_err={err}")
+            if name == "P5":
+                x, offs, r = args
+                src = sp3.sequential_source_rows(
+                    x.shape[0], offs.cpu().numpy(), r)
+                live = torch.from_numpy(src >= 0).cuda()
+                rows = torch.from_numpy(np.maximum(src, 0)).cuda()
+                if not (torch.equal(got[live], x[rows[live]])
+                        and not bool(got[~live].any())):
+                    raise AssertionError(
+                        f"P5 disagrees with numpy's loop: {shape}")
+                steps = int(((offs >= 0) & (offs <= x.shape[0] - r)).sum())
+                overlaps[shape] = (int(live.sum()), steps * r)
+            del got, want
+        log(f"[kernels] {name} == plain, bitwise, on {len(cases[name])} "
+            f"inputs: {', '.join(cases[name])} (max_abs_err {worst[name]})")
+    log("[kernels] P5 == numpy's loop in step order as well; rows written "
+        "of the rows its steps cover (fewer where write windows overlap): "
+        + "; ".join(f"{shape}: {a:,} of {b:,}"
+                    for shape, (a, b) in overlaps.items()))
+    if not overlaps["ref, R=512"][0] < overlaps["ref, R=512"][1]:
+        raise AssertionError("the TPU probe's 64 windows of 512 rows were "
+                             "expected to overlap")
+    # what no plain version takes: offsets outside x give zeros, as in P2
+    x, n = cases["P7"]["ref, granule 1"][0], 1 << PROBE_REF_LOG_N
+    offs = torch.tensor([-5, n - 100, 2 ** 31 - 1, -2 ** 31, 7],
+                        dtype=torch.int32, device="cuda")
+    got = cp3.async_copy(x, offs).reshape(-1, cp.CH)
+    if not (torch.equal(got, cp.dyn_copy(x, offs).reshape(-1, cp.CH))
+            and torch.equal(got[0, 5:], x[: cp.CH - 5])
+            and not bool(got[0, :5].any()) and not bool(got[2:4].any())
+            and torch.equal(got[1, :100], x[n - 100:])
+            and not bool(got[1, 100:].any())
+            and torch.equal(got[4], x[7: 7 + cp.CH])):
+        raise AssertionError("P7 with offsets outside x: not zeros outside, "
+                             "x inside, as P2 gives")
+    log("[kernels] P7 with offsets outside [0, n - CH]: zeros where the "
+        "window leaves x, equal to P2's output")
+    return worst
+
+
+def phase_main_probes_r3():
+    """The round-3 probe entry point as a user runs it, at log_n 26."""
+    from kmer_hasher_tpu_torch.probes import _common, sort_probes_r3
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sort_probes_r3.run(PROBE_LOG_N)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    timed = _common.calls_per_timing(torch.device("cuda"))
+    per = 1 + timed  # a probe line: one check launch plus one timing's
+    n_r2 = 2 * len(sort_probes_r3.ROWS_PER_COPY)
+    n_r3 = 2 * len(sort_probes_r3.GRANULES)
+    # R4 times P1 beside P8, R3 times P2 beside P7 (no check launch)
+    want = (0, 0, 0, 2 * timed, n_r3 * timed, 0, 0,
+            n_r2 * per, 2 * per, n_r3 * per, 2 * per)
+    if launches != want:
+        raise AssertionError(f"the round-3 probe entry launched (B1, B2, B3, "
+                             f"P1, ..., P8) {launches}, want {want}")
+    lines = (len(res["R1"]) + len(res["R5"]) + n_r2 + 2 + len(res["R4"])
+             + n_r3)
+    log(f"[main] probes r3: sort_probes_r3 at log_n {PROBE_LOG_N} through "
+        f"its entry point, {lines} lines, all ok (a probe that is not "
+        f"raises), {wall:.3f} s; launches P5 {launches[7]}, P6 "
+        f"{launches[8]}, P7 {launches[9]}, P8 {launches[10]} (per line 1 "
+        f"check + {timed} timed), and beside them P1 {launches[3]}, P2 "
+        f"{launches[4]}")
+    return launches
+
+
+def phase_times_probes_r3(cases: dict, card: str) -> dict:
+    """P5-P8 per launch at the reference and full shapes, beside the plain
+    version and, where one PyTorch call computes the same function, that
+    call with its index built beforehand: the row gather (P6), the element
+    gather (P7, as for P2), ``tab.reshape(-1)[idx]`` (P8). P5's order of
+    steps has no such call."""
+    from kmer_hasher_tpu_torch.probes import cuda_probes as cp
+    from kmer_hasher_tpu_torch.probes import cuda_probes_r3 as cp3
+    from kmer_hasher_tpu_torch.probes import sort_probes_r3 as sp3
+
+    def library(name, args):
+        if name == "P6":
+            recs = args[0].reshape(-1, cp3.SMALL_ROWS * cp3.COLS)
+            idx = args[1].long() // cp3.SMALL_ROWS
+            if bool((args[1] % cp3.SMALL_ROWS).any()):  # not on a record
+                rows = (args[1].long()[:, None] + torch.arange(
+                    cp3.SMALL_ROWS, device="cuda")).reshape(-1)
+                return lambda: args[0][rows]
+            return lambda: recs[idx]
+        if name == "P7":
+            idx = (args[1].long()[:, None] + torch.arange(
+                cp.CH, device="cuda")).reshape(-1)
+            return lambda: args[0][idx]
+        if name == "P8":
+            flat, idx = args[0].reshape(-1), args[1].long()
+            return lambda: flat[idx]
+        return None
+
+    out = {}
+    for name, (fn, plain) in probe_r3_kernels().items():
+        out[name] = {}
+        for shape, args in cases[name].items():
+            if not shape.startswith(("ref", "full")):
+                continue
+            big = args[0].numel() > 1 << 25 or name == "P8" and (
+                args[1].numel() > 1 << 25)
+            ms = cuda_ms(lambda: fn(*args), iters=20 if big else 200)
+            plain_ms = cuda_ms(lambda: plain(*args), iters=2, warmup=1)
+            lib = library(name, args)
+            lib_ms = None if lib is None else cuda_ms(
+                lib, iters=10 if big else 100)
+            if name == "P5":
+                x, offs, r = args
+                src = sp3.sequential_source_rows(
+                    x.shape[0], offs.cpu().numpy(), r)
+                # the rows that stand are read once; the whole output
+                # (zeros included) is written once
+                moved = 512 * int((src >= 0).sum()) + 4 * x.numel() + (
+                    4 * offs.numel())
+            elif name == "P6":
+                moved = (4 + 2 * 2048) * args[1].numel()
+            elif name == "P7":
+                moved = 2 * 4 * args[1].numel() * cp.CH + 4 * args[1].numel()
+            else:
+                moved = 2 * 4 * args[1].numel() + 4 * cp3.TABLE
+            b_ms, b_by = bound(moved, 0)
+            out[name][shape] = {"ms": ms, "plain_ms": plain_ms,
+                                "library_ms": lib_ms, "bytes": moved,
+                                "bound_ms": b_ms, "bound_by": b_by}
+            extra = ""
+            if name == "P6":
+                extra = (f" = {args[1].numel() / ms / 1e3:.1f} M "
+                         f"transfers/s")
+            elif name == "P8":
+                extra = f" = {ms * 1e6 / args[1].numel():.4f} ns/element"
+            lib_txt = ("no library call" if lib_ms is None
+                       else f"library call {lib_ms:.4f} ms")
+            log(f"[times] {name}, {shape}: kernel {ms:.4f} ms = "
+                f"{moved / ms / 1e9:.3f} TB/s of {moved / 1e6:.3f} MB"
+                f"{extra} (bound {b_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                f"{lib_txt} (CUDA events) | {card}")
+    return out
+
+
+# -- the command line -----------------------------------------------------------
+
+def run_cli(argv, env=None, what=""):
+    """``python -m kmer_hasher_tpu_torch <argv>`` in a subprocess from the
+    checkout's root: (its last stdout line as JSON where it is JSON, all of
+    stdout, seconds). A nonzero exit raises with the output's end."""
+    cmd = [sys.executable, "-m", "kmer_hasher_tpu_torch"] + [
+        str(a) for a in argv]
+    full_env = dict(os.environ, PYTHONPATH=str(ROOT))
+    full_env.update(env or {})
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=full_env, capture_output=True,
+                         text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(
+            f"{' '.join(cmd)} exited with {res.returncode}:\n"
+            f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    lines = res.stdout.strip().splitlines()
+    try:
+        info = json.loads(lines[-1]) if lines else None
+    except ValueError:
+        info = None
+    log(f"[main] cli: {what or argv[0]}: {secs:.1f} s in a subprocess"
+        + (f": {lines[-1][:300]}" if info is not None else ""))
+    return info, res.stdout, secs
+
+
+def same_store(a, b) -> bool:
+    return (torch.equal(a.keys.cpu(), b.keys.cpu())
+            and torch.equal(a.cnt.cpu(), b.cnt.cpu())
+            and bool((a.total_added == b.total_added).all()))
+
+
+def write_fasta(path: Path, name: str, seq: np.ndarray, width: int = 80):
+    """One record, ``width`` bases a line, laid out with numpy."""
+    n = seq.shape[0]
+    full = n // width
+    body = np.empty((full, width + 1), np.uint8)
+    body[:, :width] = seq[: full * width].reshape(full, width)
+    body[:, width] = ord("\n")
+    with open(path, "wb") as f:
+        f.write(f">{name}\n".encode())
+        f.write(body.tobytes())
+        if n % width:
+            f.write(seq[full * width:].tobytes() + b"\n")
+
+
+def main_cli(argv):
+    """The command line's ``main(argv)`` in this process: (its last stdout
+    line as JSON where it is JSON, all of stdout)."""
+    import contextlib
+    import io
+
+    from kmer_hasher_tpu_torch import __main__ as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main([str(a) for a in argv])
+    lines = out.getvalue().strip().splitlines()
+    try:
+        return (json.loads(lines[-1]) if lines else None), out.getvalue()
+    except ValueError:
+        return None, out.getvalue()
+
+
+def phase_main_cli(seq: np.ndarray, batches, main: dict, tmp: Path,
+                   card: str):
+    """The command line in subprocesses, then the file entry in-process
+    with launches counted: see the module docstring."""
+    import shutil
+
+    from kmer_hasher_tpu_torch import api
+    from kmer_hasher_tpu_torch.utils import checkpoint
+
+    k = K_COUNT
+    n_all = len(batches) * ROWS
+    rec_bytes = 7 + 2 * READ_LEN
+    free = shutil.disk_usage(tmp).free
+    # the FASTQ and the saved store must fit beside it
+    n_reads = n_all if free > 3 * n_all * rec_bytes else CLI_MIN_READS
+    fq, fq50 = tmp / "reads.fq", tmp / "reads50k.fq"
+    t0 = time.perf_counter()
+    write_fastq(fq, batches, n_reads)
+    write_fastq(fq50, batches, FILE_READS)
+    log(f"[main] cli: wrote {n_reads:,} of the counting cell's {n_all:,} "
+        f"reads as FASTQ ({fq.stat().st_size / 1e6:.1f} MB"
+        + ("" if n_reads == n_all else
+           f"; the temporary directory has only {free / 1e9:.1f} GB free")
+        + f") and the first {FILE_READS:,} as a second file, "
+        f"{time.perf_counter() - t0:.1f} s")
+    staged = main["store"]
+    if n_reads != n_all:
+        from kmer_hasher_tpu_torch import counting
+
+        cut = [tuple(a[:n_reads - i * ROWS] for a in b)
+               for i, b in enumerate(batches[: -(-n_reads // ROWS)])]
+        staged = counting.count_batches(api.CountStore(k), cut, k,
+                                        min_q=MIN_Q, exact_ll="hybrid")
+    count = ["-k", k, "--min-q", MIN_Q, "--ll-mode", "hybrid"]
+
+    # count in a subprocess at the cell's size; spectrum and depth of the
+    # store it saved through main(argv) here
+    info, _, t_count = run_cli(["count", fq, *count, "-o", tmp / "store.npz"],
+                               what=f"count of {n_reads:,} reads")
+    if info["reader"] != "native":
+        raise AssertionError(f"the count verb read through {info['reader']}")
+    saved = checkpoint.load_count_store(tmp / "store.npz")
+    if not same_store(saved, staged) or info["distinct"] != staged.n_unique:
+        raise AssertionError("the count verb's saved table differs from the "
+                             "store built from the same reads staged on the "
+                             "card")
+    _, out = main_cli(["spectrum", tmp / "store.npz", "--max-count", 255])
+    spec = api.kmer_spectrum(staged, 255)
+    want = "".join(f"{c}\t{int(v)}\n" for c, v in enumerate(spec) if v)
+    if out != want:
+        raise AssertionError("the spectrum verb's lines differ from "
+                             "kmer_spectrum of the staged store")
+    write_fasta(tmp / "stretch.fa", "stretch", main["stretch"].cpu().numpy())
+    main_cli(["depth", tmp / "store.npz", tmp / "stretch.fa", "-k", k, "-o",
+              tmp / "depth.npy"])
+    if n_reads == n_all and not np.array_equal(
+            np.load(tmp / "depth.npy"), main["depth"].cpu().numpy()):
+        raise AssertionError("the depth verb's track differs from "
+                             "seq_kmer_depth in-process")
+    log(f"[main] cli: count -> {saved.n_unique:,} distinct, reader native; "
+        f"the saved table equals the staged store's, bitwise; spectrum "
+        f"prints kmer_spectrum's {len(want.splitlines())} nonzero bins; "
+        f"depth of {DEPTH_LEN:,} bases equals the in-process track")
+    del saved
+
+    # both readers and resume on the first 50,000 reads: the pure-Python
+    # reader counts a run cut by --max-reads, the native reader resumes it
+    info, _, _ = run_cli(
+        ["count", fq50, *count, "--max-reads", CLI_CUT_READS,
+         "--checkpoint-every", CLI_CKPT_EVERY, "--batch-rows", 8192,
+         "--no-pack", "-o", tmp / "ck.npz"], env={"KMH_NATIVE_IO": "0"},
+        what="count, KMH_NATIVE_IO=0, cut by --max-reads")
+    cur = checkpoint.load_progress(tmp / "ck.npz")
+    if info["reader"] != "python" or cur["reads_done"] != CLI_CUT_READS or (
+            cur["done"]):
+        raise AssertionError(f"the cut run read through {info['reader']} and "
+                             f"left the cursor {cur}")
+    info, _, _ = run_cli(
+        ["count", fq50, *count, "--resume", tmp / "ck.npz",
+         "--checkpoint-every", CLI_CKPT_EVERY, "-o", tmp / "ck.npz"],
+        what="count --resume")
+    resumed = checkpoint.load_count_store(tmp / "ck.npz")
+    cur = checkpoint.load_progress(tmp / "ck.npz")
+    # in this process: the file entry over the same 50,000 reads (this run
+    # also warms the path up for the timed one below)
+    t1 = time.perf_counter()
+    un = api.count_kmers_fq_sh_rp(str(fq50), k=k, min_q=MIN_Q,
+                                  exact_ll="hybrid")
+    torch.cuda.synchronize()
+    t_50 = time.perf_counter() - t1
+    if not (info["reader"] == "native" and cur["done"]
+            and cur["reads_done"] == FILE_READS and same_store(resumed, un)):
+        raise AssertionError("the run cut under the pure-Python reader and "
+                             "resumed under the native one differs from the "
+                             "uncut native run")
+    log(f"[main] cli: on the first {FILE_READS:,} reads a run cut at "
+        f"{CLI_CUT_READS:,} reads under KMH_NATIVE_IO=0 (reader python, "
+        f"--no-pack accepted) and resumed under the native reader equals the "
+        f"uncut native run ({un.n_unique:,} distinct), bitwise")
+    del resumed, un
+
+    # index / tables / query through main(argv) on a prefix of the sequence
+    # (the 40,000,000-base index path itself is phase 4)
+    ref = seq[:CLI_REF_LEN]
+    query = seq[QUERY_AT: QUERY_AT + QUERY_LEN]
+    write_fasta(tmp / "ref.fa", "chr", ref)
+    write_fasta(tmp / "query.fa", "query", query)
+    info, _ = main_cli(["index", tmp / "ref.fa", "-k", 32, "-o",
+                        tmp / "i32.npz"])
+    main_cli(["tables", tmp / "i32.npz", "--opt-flag", 2 | 8, "-o",
+              tmp / "tab"])
+    idx = api.make_kmer_hash(ref, 32)
+    tabs = api.kmer_pos(idx, 2 | 8)
+    if (info["positions"], info["distinct"], info["pairs"]) != (
+            idx.n_valid, idx.n_kmers, idx.total_pairs):
+        raise AssertionError(f"index -k 32 says {info}")
+    for name in ("pos", "count"):
+        if not np.array_equal(np.load(tmp / f"tab.{name}.npy"),
+                              tabs[name].cpu().numpy()):
+            raise AssertionError(f"tables: {name} differs from kmer_pos")
+    n_pos, n_distinct = idx.n_valid, idx.n_kmers
+    del idx, tabs
+    main_cli(["index", tmp / "ref.fa", "-k", 21, "-o", tmp / "i21.npz"])
+    info, _ = main_cli(["query", tmp / "i21.npz", tmp / "query.fa", "-k", 21,
+                        "-o", tmp / "hits.npy"])
+    rows = api.seq_kmer_pos(api.make_kmer_hash(ref, 21), query, 21)
+    if info["hits"] != rows.shape[0] or rows.shape[0] < 1 or (
+            not np.array_equal(np.load(tmp / "hits.npy"),
+                               rows.cpu().numpy())):
+        raise AssertionError("query: rows differ from seq_kmer_pos")
+    log(f"[main] cli: index -k 32 + tables of a FASTA of the sequence's "
+        f"first {CLI_REF_LEN:,} bases ({n_pos:,} positions, {n_distinct:,} "
+        f"distinct): pos and count equal kmer_pos(2|8) in-process; index -k "
+        f"21 + query of {QUERY_LEN:,} bases: {rows.shape[0]:,} rows equal "
+        f"seq_kmer_pos")
+    del rows
+
+    # the file entry in-process: launches counted, the reading timed
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = api.count_kmers_fq_sh_rp(str(fq), k=k, min_q=MIN_Q,
+                                  exact_ll="hybrid")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    tm = st.timings
+    if tm["reader"] != "native":
+        raise AssertionError(f"the file entry read through {tm['reader']}: "
+                             f"{native_build_error()}")
+    if not same_store(st, staged):
+        raise AssertionError("the file entry's store differs from the "
+                             "staged store")
+    if (launches[1] < -(-n_reads // 32_768) or launches[2] < 1
+            or launches[2] != two_run_merges(st)):
+        raise AssertionError(f"the file entry launched B2 {launches[1]} and "
+                             f"B3 {launches[2]} times")
+    del st
+    staged_rate = main["n_reads"] / main["wall"]
+    log(f"[times] file entry count_kmers_fq_sh_rp of {n_reads:,} reads "
+        f"({fq.stat().st_size / 1e6:.1f} MB FASTQ), native reader, hybrid: "
+        f"{wall:.3f} s = {n_reads / wall:,.0f} reads/s; producer thread busy "
+        f"parsing and padding {tm['parse_s']:.3f} s, consumer waiting for it "
+        f"{tm['wait_s']:.3f} s, staging and enqueueing the copies "
+        f"{tm['copy_s']:.3f} s, {tm['h2d_bytes'] / tm['file_reads']:.1f} "
+        f"bytes/read to the card; the same reads staged on the card: "
+        f"{main['wall']:.3f} s = {staged_rate:,.0f} reads/s; the "
+        f"{FILE_READS:,}-read file {t_50:.3f} s; the count verb in a "
+        f"subprocess, start to exit, {t_count:.1f} s; B2 launches "
+        f"{launches[1]}, B3 launches {launches[2]} | {card}")
+    return launches, {"wall": wall, "reads": n_reads,
+                      "timings": {k_: v for k_, v in tm.items()
+                                  if not isinstance(v, str)}}
+
+
+def phase_card_vs_cpu_cli(fq50: Path, tmp: Path) -> None:
+    """The count verb on a small file with --device cpu and on the card:
+    the same JSON line and the same saved table."""
+    import contextlib
+    import io
+
+    from kmer_hasher_tpu_torch import __main__ as cli
+    from kmer_hasher_tpu_torch.utils import checkpoint
+
+    infos = {}
+    for dev in ("cuda", "cpu"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["count", str(fq50), "-k", str(K_COUNT), "--min-q",
+                      str(MIN_Q), "--ll-mode", "hybrid", "--max-reads",
+                      "4000", "-o", str(tmp / f"cli-{dev}.npz"), "--device",
+                      dev])
+        infos[dev] = json.loads(out.getvalue().strip().splitlines()[-1])
+        infos[dev].pop("out")
+    g, c = (checkpoint.load_count_store(tmp / f"cli-{dev}.npz", device="cpu")
+            for dev in ("cuda", "cpu"))
+    if infos["cuda"] != infos["cpu"] or not same_store(g, c) or (
+            g.n_unique < 1):
+        raise AssertionError(f"count --device cpu differs from the card: "
+                             f"{infos}")
+    log(f"[card-vs-cpu] cli: count of 4,000 reads with --device cuda and "
+        f"--device cpu: the same JSON line ({infos['cpu']['distinct']:,} "
+        f"distinct, reader {infos['cpu']['reader']}) and the same saved "
+        f"table, bitwise")
 
 
 # -- the spill regime ---------------------------------------------------------
@@ -1590,7 +2158,7 @@ def bound(bytes_moved: float, ops: float):
 
 
 PATHS = ("index", "merge_sort_index", "counting", "file", "threshold",
-         "probes", "spill")
+         "probes", "spill", "probes_r3", "cli")
 
 
 def main() -> None:
@@ -1610,6 +2178,10 @@ def main() -> None:
     gen_p.manual_seed(SEED + 4)
     p_cases = probe_cases(gen_p)
     worst_p = phase_kernels_probes(p_cases)
+    gen_r3 = torch.Generator(device="cuda")
+    gen_r3.manual_seed(SEED + 5)
+    r3_cases = probe_r3_cases(gen_r3)
+    worst_p.update(phase_kernels_probes_r3(r3_cases))
     seq = make_sequence(rng, SEQ_LEN)
     reset_launches()
     _, t_k32 = phase_main(seq)
@@ -1626,9 +2198,16 @@ def main() -> None:
         launches.update(more)
         launches["threshold"] = phase_main_threshold(fq)
         phase_card_vs_cpu_spill(batches, fq, Path(tmp))
+        launches["cli"], cli_stats = phase_main_cli(seq, batches, stats,
+                                                    Path(tmp), card)
+        phase_card_vs_cpu_cli(Path(tmp) / "reads50k.fq", Path(tmp))
+    for key in ("store", "stretch", "depth"):
+        del stats[key]
     launches["probes"] = phase_main_probes()
+    launches["probes_r3"] = phase_main_probes_r3()
     launches["spill"] = phase_main_spill(gen_p, card)
-    by_path = [{p: launches[p][i] for p in PATHS} for i in range(7)]
+    by_path = [{p: launches[p][i] for p in PATHS}
+               for i in range(len(counted_wrappers()))]
     swept = phase_hybrid_full_width(rng)
     phase_card_vs_cpu(seq)
     phase_card_vs_cpu_counting(genome, batches)
@@ -1640,6 +2219,8 @@ def main() -> None:
     del cases
     p_times = phase_times_probes(p_cases, card)
     del p_cases
+    p_times.update(phase_times_probes_r3(r3_cases, card))
+    del r3_cases
     b2_ms, b2_plain = phase_times_counting(batches, card, stats)
     # least time for the same work: every input byte read once, every output
     # byte written once; B1 does ~4 integer ops per base of each window, B2
@@ -1719,7 +2300,27 @@ def main() -> None:
              "full, granule 1"),
             ("P3", "P3 probe_roll (rows)", "probe_roll.cu", 112, "full"),
             ("P4", "P4 probe_roll (flat)", "probe_roll.cu", 135, "full"),
-        ), start=3)]}))
+        ), start=3)] + [dict({
+        "name": title,
+        "route": "cuda",
+        "source": f"kmer_hasher_tpu_torch/csrc/{source}",
+        "replaces": f"tools/chip_probes/sort_probes_r3.py:{line}",
+        "launches": by_path[i]["probes_r3"],
+        "launches_by_path": by_path[i],
+        "max_abs_err": worst_p[name],
+        "shape": shape,
+        "by_shape": p_times[name],
+    }, **{key: p_times[name][shape][key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        for i, (name, title, source, line, shape) in enumerate((
+            ("P5", "P5 probe_dyn_copy_2d", "probe_dyn_copy_2d.cu", 86,
+             "full, R=512"),
+            ("P6", "P6 probe_small_copy", "probe_small_copy.cu", 139, "full"),
+            ("P7", "P7 probe_async_copy", "probe_async_copy.cu", 190,
+             "full, granule 1"),
+            ("P8", "P8 probe_smem_gather", "probe_smem_gather.cu", 232,
+             "full"),
+        ), start=7)], "file_entry": cli_stats}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -13,12 +13,21 @@ store) and ``count_kmers_fq_sh`` over ``ops.scan_iter.threshold_scan``, and
 ``seq_kmer_depth`` in both semantics. Every store they fill merges its
 tiers through kernel B3; a store made with ``spill_bytes`` spills and
 rejoins its runs as the entries fill it, and ``count_kmers_fq`` takes
-``budget_semantics="drop"``. Still to come: the packed upload forms and
-``mesh=``.
+``budget_semantics="drop"``.
+
+Every file entry reads through :func:`_iter_file_batches`: the native C++
+parser where it builds (``io/native.py``), else the pure-Python reader, one
+batch ahead in a producer thread; ``_device_batches`` stages the padded
+byte planes through pinned buffers. Which reader ran, and what the reading
+cost, is in ``store.timings`` (``reader``, ``parse_s``, ``wait_s``,
+``copy_s``, ``h2d_bytes``, ``file_reads``). Still to come: ``mesh=``.
 """
 from __future__ import annotations
 
 import os
+import queue
+import threading
+import time
 from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -27,6 +36,7 @@ import torch
 from .index import count_store as cs
 from .index.count_store import CountStore
 from .index.position_index import as_sequence
+from .io import native
 from .io.fastx import iter_fastx, pad_records
 from .ops import cuda_scan
 from .ops import encode as enc
@@ -37,6 +47,8 @@ MAX_K = 32
 BATCH_ROWS = 1 << 15  # reads per batch of the file entries
 _SWEEP_EVERY = 64  # batches between exact re-counts of flagged reads
 _NA = -(2 ** 31)  # INT_MIN, R's NA_integer_
+MESH_NOT_PORTED = ("multi-device counting (mesh=; --mesh and --mesh-slices "
+                   "on the command line) is not ported yet")
 
 
 def win_bucket(lmax: int, k: int) -> int:
@@ -68,27 +80,107 @@ def _normalize_paths(path) -> Optional[List[str]]:
     return paths
 
 
-def _iter_file_batches(path, max_reads: Optional[int], skip: int = 0
+def _prefetch(it: Iterator, depth: int, info: dict) -> Iterator:
+    """``it`` run in one producer thread, ``depth`` items ahead: the parse
+    of batch N+1 overlaps the device work on batch N (the C++ calls release
+    the GIL). ``info["parse_s"]`` accumulates the seconds the producer spent
+    making items, ``info["wait_s"]`` those the consumer spent waiting for
+    one. An error in the producer is raised in the consumer; a consumer that
+    stops early stops the producer. The thread is joined before return."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    done = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def worker():
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    item = done
+                info["parse_s"] = info.get("parse_s", 0.0) + (
+                    time.perf_counter() - t0)
+                if not put(item) or item is done:
+                    return
+        except BaseException as e:  # raised again by the consumer
+            put(e)
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()  # a reader left half-way closes its file
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            t0 = time.perf_counter()
+            item = q.get()
+            info["wait_s"] = info.get("wait_s", 0.0) + (
+                time.perf_counter() - t0)
+            if item is done:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join()
+
+
+def _iter_file_batches(path, max_reads: Optional[int], skip: int = 0,
+                       batch_rows: Optional[int] = None,
+                       info: Optional[dict] = None
                        ) -> Iterator[Tuple[np.ndarray, ...]]:
     """Host (seq, qual, lengths, has_qual) batches of a FASTA/FASTQ file,
-    padded to the batch's longest read. ``skip`` discards the first N
-    records (mid-file resume); ``max_reads`` then limits the records
-    yielded after the skip."""
+    one batch ahead in a producer thread. A batch's rows are its reads; its
+    columns the multiple of 8 that holds the longest. ``skip`` discards the
+    first N records (mid-file resume); ``max_reads`` then limits the records
+    yielded after the skip. ``batch_rows`` defaults to ``KMH_BATCH_ROWS``
+    (read at call time), else :data:`BATCH_ROWS`.
+
+    The native parser pads the planes in C++; where it did not build, or
+    with ``KMH_NATIVE_IO=0``, the pure-Python reader does. ``info`` receives
+    ``reader`` ("native" or "python") and the producer's ``parse_s`` / the
+    consumer's ``wait_s``."""
     if max_reads is not None and max_reads < 0:
         max_reads = None
-    limit = None if max_reads is None else skip + max_reads
-    to_skip = skip
-    for recs in iter_fastx(path, batch_size=BATCH_ROWS, max_records=limit):
-        if to_skip >= len(recs):
-            to_skip -= len(recs)
-            continue
-        if to_skip:
-            recs, to_skip = recs[to_skip:], 0
-        padded = pad_records(recs, pad_to_multiple=1)
-        yield padded.seq, padded.qual, padded.lengths, padded.has_qual
+    if batch_rows is None:
+        batch_rows = int(os.environ.get("KMH_BATCH_ROWS", BATCH_ROWS))
+    info = {} if info is None else info
+    info["reader"] = native.reader_name()
+
+    def produce():
+        if info["reader"] == "native":
+            yield from native.iter_fastx_padded(path, batch_rows, max_reads,
+                                                skip)
+            return
+        limit = None if max_reads is None else skip + max_reads
+        to_skip = skip
+        for recs in iter_fastx(path, batch_size=batch_rows,
+                               max_records=limit):
+            if to_skip >= len(recs):
+                to_skip -= len(recs)
+                continue
+            if to_skip:
+                recs, to_skip = recs[to_skip:], 0
+            padded = pad_records(recs, pad_to_multiple=8)
+            yield padded.seq, padded.qual, padded.lengths, padded.has_qual
+
+    yield from _prefetch(produce(), 2, info)
 
 
-def _device_batches(batches: Iterable, dev: torch.device):
+def _device_batches(batches: Iterable, dev: torch.device,
+                    stats: Optional[dict] = None):
     """Batches for the counting loop: each a (seq, qual, lengths, has_qual)
     tuple of host numpy arrays or of tensors. Yields (the four as tensors
     on ``dev``, lengths and has_qual as host numpy arrays for control flow).
@@ -96,7 +188,9 @@ def _device_batches(batches: Iterable, dev: torch.device):
     Host batches reach a card through pinned buffers on a copy stream, one
     batch ahead: the copy of batch N+1 overlaps the device work on batch N.
     Two sets of pinned buffers are kept and reused in turn (one per batch
-    in flight), each grown to the largest batch it has held.
+    in flight), each grown to the largest batch it has held. ``stats``
+    accumulates ``h2d_bytes`` (bytes sent from the host) and ``copy_s`` (the
+    host's seconds staging and enqueueing them).
     """
     def host_view(b):
         return tuple(a.cpu().numpy() if isinstance(a, torch.Tensor)
@@ -126,6 +220,7 @@ def _device_batches(batches: Iterable, dev: torch.device):
         if all(isinstance(a, torch.Tensor) and a.is_cuda for a in b):
             # staged on a card already ("cuda" names the current one)
             return tuple(a.to(dev) for a in b), None, host_view(b)
+        t0 = time.perf_counter()
         slot = slots[turn]
         turn ^= 1
         if slot["done"] is not None:
@@ -135,6 +230,11 @@ def _device_batches(batches: Iterable, dev: torch.device):
                         .to(dev, non_blocking=True) for i, a in enumerate(b))
             slot["done"] = torch.cuda.Event()
             slot["done"].record(copy)
+        if stats is not None:
+            stats["h2d_bytes"] = stats.get("h2d_bytes", 0) + sum(
+                t.numel() * t.element_size() for t in out)
+            stats["copy_s"] = stats.get("copy_s", 0.0) + (
+                time.perf_counter() - t0)
         return out, slot["done"], host_view(b)
 
     it = iter(batches)
@@ -300,7 +400,7 @@ def count_batches(store: CountStore, batches: Iterable, k: int,
     ``on_batch(n_records, sweep)`` is called after each batch (the file
     entry checkpoints there; ``sweep()`` makes the store exact first).
     ``stats``, if given, receives ``flagged_reads``: how many reads hybrid
-    mode flagged and re-counted."""
+    mode flagged and re-counted, and what :func:`_device_batches` counts."""
     fsm = _fsm_of(exact_ll)
     min_ll_f = float(Q_TO_LL[33 + int(min_q)])
     min_q_char = 33 + int(min_q)
@@ -312,7 +412,7 @@ def count_batches(store: CountStore, batches: Iterable, k: int,
             stats["flagged_reads"] = stats.get("flagged_reads", 0) + n
 
     for (seq, qual, lengths, has_qual), len_h, hq_h in _device_batches(
-            batches, store.device):
+            batches, store.device, stats):
         with_noq = bool((~hq_h & (len_h > k)).any())
         n_win = win_bucket(len_h.max(initial=1), k)
         run_keys, run_cnt, n_obs, flags, n_flag = _fused_rp_batch(
@@ -370,8 +470,12 @@ def _count_fastq_threshold(path, k: int, min_q: int, store: CountStore,
     iterator, canonical min(fwd, rc) (src/kmer_hash.c:618-806)."""
     min_q_char = 33 + int(min_q)  # '!' + q, src/kmer_hash.c:633
     meter = _progress(report_every, f"count_fq[{path}]")
+    info: dict = {}
+    stats: dict = {}
     for (seq, qual, lengths, has_qual), len_h, hq_h in _device_batches(
-            _iter_file_batches(path, max_reads), store.device):
+            _iter_file_batches(path, max_reads, info=info), store.device,
+            stats):
+        stats["file_reads"] = stats.get("file_reads", 0) + len(len_h)
         with_q = bool(hq_h.any())
         with_noq = bool((~hq_h & (len_h > 0)).any())
         if not (with_q or with_noq):
@@ -383,7 +487,20 @@ def _count_fastq_threshold(path, k: int, min_q: int, store: CountStore,
         if meter:
             meter.update(int((len_h > 0).sum()),
                          distinct_kmers=lambda: store.peek_n_unique())
+    _record_reading(store, info, stats)
     return store.flush()
+
+
+def _record_reading(store: CountStore, info: dict, stats: dict) -> None:
+    """What reading a file cost, into ``store.timings``: the reader's name
+    (of the last file), and summed over files the producer's parse seconds,
+    the consumer's seconds waiting for it, the staging seconds, the bytes
+    sent to the device and the reads."""
+    tm = store.timings
+    tm["reader"] = info["reader"]
+    for key, src in (("parse_s", info), ("wait_s", info), ("copy_s", stats),
+                     ("h2d_bytes", stats), ("file_reads", stats)):
+        tm[key] = tm.get(key, 0) + src.get(key, 0)
 
 
 def count_kmers_fq(path, k: int, min_q: int = 0, prefix_bits: int = 16,
@@ -443,6 +560,7 @@ def count_kmers_fq_sh_rp(path, k: int, prefix_bits: int = 20,
                          exact_ll=True, mesh=None, skip_reads: int = 0,
                          checkpoint_every: Optional[int] = None,
                          checkpoint_path: Optional[str] = None,
+                         batch_rows: Optional[int] = None,
                          device="cuda") -> CountStore:
     """The flagship path ``count.kmers.fq.sh.rp`` (src/kmer_hash.c:810-857):
     quality-likelihood filtered, canonical, multi-source counting, on
@@ -466,11 +584,11 @@ def count_kmers_fq_sh_rp(path, k: int, prefix_bits: int = 20,
     ``checkpoint_every=N`` the store plus a progress record (file path,
     reads consumed) is written atomically to ``checkpoint_path`` every N
     reads — together they give mid-file resume (see
-    ``utils.checkpoint.load_progress``).
+    ``utils.checkpoint.load_progress``). ``batch_rows`` is the reads per
+    device batch (default: ``KMH_BATCH_ROWS``, else :data:`BATCH_ROWS`).
     """
     if mesh is not None:
-        raise NotImplementedError("multi-device counting (mesh=) is not "
-                                  "ported yet")
+        raise NotImplementedError(MESH_NOT_PORTED)
     if checkpoint_every is not None and checkpoint_path is None:
         raise ValueError("checkpoint_every requires checkpoint_path")
     paths = _normalize_paths(path)
@@ -487,7 +605,7 @@ def count_kmers_fq_sh_rp(path, k: int, prefix_bits: int = 20,
             store = count_kmers_fq_sh_rp(
                 p, k, prefix_bits, min_q, n_shards, None, max_mem_gb,
                 source_n, source, store, report_every, exact_ll,
-                device=device)
+                batch_rows=batch_rows, device=device)
         return store
     if not 1 <= k <= MAX_K:
         raise ValueError("k must be a positive integer less than 1+MAX_K")
@@ -516,10 +634,16 @@ def count_kmers_fq_sh_rp(path, k: int, prefix_bits: int = 20,
             sweep()  # checkpointed state must be exact
             _checkpoint_progress(store, checkpoint_path, path, reads_done)
 
-    count_batches(store, _iter_file_batches(path, max_reads, skip_reads),
+    info: dict = {}
+    stats: dict = {}
+    count_batches(store,
+                  _iter_file_batches(path, max_reads, skip_reads, batch_rows,
+                                     info),
                   k, min_q, source, exact_ll,
                   meter=_progress(report_every, f"count_rp[{path}]"),
-                  on_batch=on_batch)
+                  on_batch=on_batch, stats=stats)
+    stats["file_reads"] = reads_done - int(skip_reads)
+    _record_reading(store, info, stats)
     if checkpoint_every is not None:
         # done only when the file was exhausted (a max_reads-limited leg
         # may have more records left; resume continues from the cursor)

@@ -1,6 +1,9 @@
-"""Sequence file readers of the port."""
-from .fastx import (PaddedReads, Record, iter_fastx, pad_records,
+"""Sequence file readers of the port: the pure-Python reader (``fastx``)
+and the binding of the native C++ parser (``native``, built at first use)."""
+from .fastx import (PaddedReads, Record, find_record_boundary, is_fourline_fastq,
+                    is_gzip, iter_fastx, iter_fastx_range, pad_records,
                     read_fastx)
 
-__all__ = ["PaddedReads", "Record", "iter_fastx", "pad_records",
-           "read_fastx"]
+__all__ = ["PaddedReads", "Record", "find_record_boundary",
+           "is_fourline_fastq", "is_gzip", "iter_fastx", "iter_fastx_range",
+           "pad_records", "read_fastx"]

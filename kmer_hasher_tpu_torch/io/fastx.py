@@ -14,7 +14,11 @@ bytes, sequences and qualities may span lines. Records come out two ways:
   ``qual`` plus lengths. Padding is base 'N' / quality 0, so a padded tail
   can form no valid window on any filtering path.
 
-Byte-range slicing and the native C++ reader wait for a later change.
+The byte-range forms (:func:`find_record_boundary`,
+:func:`iter_fastx_range`, gated by :func:`is_gzip` and
+:func:`is_fourline_fastq`) slice a plain file among several readers so that
+consecutive ranges partition its records exactly. The native C++ reader is
+``io/native.py``; this module never calls it.
 """
 from __future__ import annotations
 
@@ -121,6 +125,188 @@ def iter_fastx(path, batch_size: int = 4096,
             batch = []
     if batch:
         yield batch
+
+
+def is_gzip(path) -> bool:
+    with open(path, "rb") as f:
+        return f.read(2) == b"\x1f\x8b"
+
+
+def find_record_boundary(path, start: int, end: int) -> int:
+    """First record start at or after byte ``start`` and before ``end``
+    (-1 if none): the pure-Python twin of the native range opener. Plain
+    files only. FASTA boundaries ('>' line starts) are unambiguous; FASTQ
+    '@' and '+' are legal quality bytes, so candidates are verified against
+    two consecutive 4-line records (multi-line FASTQ is not supported in
+    range mode)."""
+    with open(path, "rb") as f:
+        fmt = f.read(1)
+        if start <= 0:
+            return 0
+        # seek to start-1 and drop a line: lands exactly on `start` when
+        # the previous byte is '\n', so a record starting AT start is ours
+        f.seek(start - 1)
+        f.readline()
+        if fmt == b">":
+            while True:
+                pos = f.tell()
+                if pos >= end:
+                    return -1
+                line = f.readline()
+                if not line:
+                    return -1
+                if line.startswith(b">"):
+                    return pos
+        lines: List[Tuple[int, bytes]] = []
+
+        def have(i: int) -> bool:
+            while len(lines) <= i:
+                pos = f.tell()
+                ln = f.readline()
+                if not ln:
+                    return False
+                lines.append((pos, ln.rstrip(b"\r\n")))
+            return True
+
+        i = 0
+        while True:
+            if not have(i):
+                return -1
+            pos, ln = lines[i]
+            if pos >= end:
+                return -1
+            if ln.startswith(b"@"):
+                if have(i + 3):
+                    ok = (lines[i + 2][1].startswith(b"+")
+                          and len(lines[i + 3][1]) == len(lines[i + 1][1]))
+                    if ok and have(i + 7):
+                        ok = (lines[i + 4][1].startswith(b"@")
+                              and lines[i + 6][1].startswith(b"+")
+                              and len(lines[i + 7][1])
+                              == len(lines[i + 5][1]))
+                    elif ok and have(i + 4):
+                        ok = lines[i + 4][1].startswith(b"@")
+                else:
+                    ok = have(i + 2) and lines[i + 2][1].startswith(b"+")
+                if ok:
+                    return pos
+            i += 1
+
+
+def _iter_records_range(path, start: int, end: int,
+                        range_info: Optional[dict] = None
+                        ) -> Iterator[Record]:
+    """Records whose first byte falls in [start, end); see
+    :func:`find_record_boundary`. The record grammar is the full parser's
+    (multi-line FASTA and FASTQ), but the FASTQ boundary search is
+    4-line-only: callers gate on :func:`is_fourline_fastq` and verify
+    continuity through ``range_info`` (filled with the resolved ``start``
+    and ``end`` record-boundary offsets)."""
+    boundary = find_record_boundary(path, start, end)
+    if boundary < 0:
+        if range_info is not None:
+            range_info["start"] = range_info["end"] = int(start)
+        return
+    if range_info is not None:
+        range_info["start"] = int(boundary)
+    with open(path, "rb") as f:
+        fmt = f.read(1)
+        f.seek(boundary)
+
+        def done(pos):
+            if range_info is not None:
+                range_info["end"] = int(pos)
+
+        if fmt == b">":
+            name = None
+            chunks: List[bytes] = []
+            while True:
+                pos = f.tell()
+                line = f.readline()
+                if not line:
+                    break
+                s = line.rstrip(b"\r\n")
+                if s.startswith(b">"):
+                    if name is not None:
+                        yield (name, b"".join(chunks), None)
+                        name = None
+                    if pos >= end:
+                        done(pos)
+                        return
+                    name = _name(s)
+                    chunks = []
+                else:
+                    chunks.append(s)
+            if name is not None:
+                yield (name, b"".join(chunks), None)
+            done(f.tell())
+            return
+        while True:
+            pos = f.tell()
+            hdr = f.readline()
+            if not hdr or pos >= end:
+                done(pos)
+                return
+            name = _name(hdr.rstrip(b"\r\n"))
+            chunks = []
+            line = b""
+            while True:
+                line = f.readline()
+                if not line or line.startswith(b"+"):
+                    break
+                chunks.append(line.rstrip(b"\r\n"))
+            seq = b"".join(chunks)
+            if not line.startswith(b"+"):  # truncated: FASTA-ish tail
+                yield (name, seq, None)
+                done(f.tell())
+                return
+            qchunks: List[bytes] = []
+            qlen = 0
+            while qlen < len(seq):
+                ql = f.readline()
+                if not ql:
+                    break
+                qchunks.append(ql.rstrip(b"\r\n"))
+                qlen += len(qchunks[-1])
+            qual = b"".join(qchunks)
+            yield (name, seq, qual if len(qual) == len(seq) else None)
+
+
+def iter_fastx_range(path, start: int, end: int, batch_size: int = 4096,
+                     range_info: Optional[dict] = None
+                     ) -> Iterator[List[Record]]:
+    """Batches of the records that start in bytes [start, end)."""
+    batch: List[Record] = []
+    for rec in _iter_records_range(path, start, end, range_info):
+        batch.append(rec)
+        if len(batch) >= batch_size:
+            yield batch
+            batch = []
+    if batch:
+        yield batch
+
+
+def is_fourline_fastq(path, n_records: int = 64) -> bool:
+    """True when the file can be sliced by byte range: FASTA (multi-line is
+    fine, '>' boundaries are unambiguous), or FASTQ whose first
+    ``n_records`` are strict 4-line records."""
+    with open(path, "rb") as f:
+        first = f.read(1)
+        if first != b"@":
+            return True  # FASTA or empty; other content fails later
+        f.seek(0)
+        for _ in range(n_records):
+            hdr = f.readline()
+            if not hdr:
+                return True
+            if not hdr.startswith(b"@"):
+                return False
+            seq = f.readline().rstrip(b"\r\n")
+            sep = f.readline()
+            qual = f.readline().rstrip(b"\r\n")
+            if not sep.startswith(b"+") or len(qual) != len(seq):
+                return False
+    return True
 
 
 @dataclass

@@ -16,9 +16,6 @@ patterns. Right shifts of a raw pattern are arithmetic; mask after them.
 Base encoding matches the reference: ``code(c) = (c >> 1) & 3`` maps A->0
 C->1 T->2 G->3 for both cases; N detection is ``(c | 0x20) == 'n'``.
 Functions work on the last axis and broadcast over a leading batch axis.
-
-Still to come with the packed upload forms: ``unpack_seq``,
-``unpack_qual``, ``unpack_qual6``.
 """
 from __future__ import annotations
 

@@ -119,12 +119,14 @@ def copy(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def dyn_copy(x: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
-    """P2: ``tiles = len(offs)`` windows of CH elements of flat ``x``, each
-    from its own element offset ``offs[t]`` in [0, len(x) - CH], one after
-    the other in the output [tiles * CH]."""
+def window_copy(wrapper, entry: str, plain, what: str, x: torch.Tensor,
+                offs: torch.Tensor) -> torch.Tensor:
+    """The contract P2 and P7 share: ``len(offs)`` windows of CH elements
+    of flat int32 ``x``, each from its own int32 element offset, through C
+    entry ``entry`` on the card (counted on ``wrapper``) or ``plain`` on the
+    CPU."""
     if x.dim() != 1 or offs.dim() != 1:
-        raise ValueError("P2 takes a flat x and a flat offs")
+        raise ValueError(f"{what} takes a flat x and a flat offs")
     if x.shape[0] < CH:
         raise ValueError(f"x must hold at least CH = {CH} elements")
     if offs.dtype != torch.int32:
@@ -132,18 +134,27 @@ def dyn_copy(x: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         if x.dtype != torch.int32 or offs.device != x.device:
             raise TypeError("expected int32 x and offs on one device")
-        return plain_dyn_copy(x, offs)
+        return plain(x, offs)
     if x.device.type != "cuda":
-        raise ValueError(f"P2 runs on CPU or CUDA tensors, not {x.device.type}")
+        raise ValueError(
+            f"{what} runs on CPU or CUDA tensors, not {x.device.type}")
     _check(x, "x", x.device)
     _check(offs, "offs", x.device)
     tiles = int(offs.shape[0])
     out = torch.empty(tiles * CH, dtype=torch.int32, device=x.device)
     if tiles:
-        _launch(dyn_copy, "kmh_probe_dyn_copy",
-                [_P, _LL, _P, _I, _I, _P, _I, _P], x.device, x.data_ptr(),
-                x.shape[0], offs.data_ptr(), tiles, CH, out.data_ptr())
+        _launch(wrapper, entry, [_P, _LL, _P, _I, _I, _P, _I, _P], x.device,
+                x.data_ptr(), x.shape[0], offs.data_ptr(), tiles, CH,
+                out.data_ptr())
     return out
+
+
+def dyn_copy(x: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """P2: ``tiles = len(offs)`` windows of CH elements of flat ``x``, each
+    from its own element offset ``offs[t]`` in [0, len(x) - CH], one after
+    the other in the output [tiles * CH]."""
+    return window_copy(dyn_copy, "kmh_probe_dyn_copy", plain_dyn_copy, "P2",
+                       x, offs)
 
 
 def _roll(wrapper, plain, x: torch.Tensor, shifts: torch.Tensor, flat: bool

@@ -17,7 +17,8 @@ from kmer_hasher_tpu_torch import counting
 from kmer_hasher_tpu_torch.index import count_store
 from kmer_hasher_tpu_torch.ops import cuda_encode, cuda_merge, cuda_scan
 from kmer_hasher_tpu_torch.ops import merge_sort
-from kmer_hasher_tpu_torch.probes import cuda_probes, sort_probes
+from kmer_hasher_tpu_torch.probes import (cuda_probes, cuda_probes_r3,
+                                          sort_probes, sort_probes_r3)
 from kmer_hasher_tpu_torch.qll import Q_TO_LL
 
 pytestmark = pytest.mark.cuda
@@ -517,3 +518,153 @@ def test_drop_store_on_card_matches_cpu(cuda, tmp_path):
     np.testing.assert_array_equal(g._admitted, c._admitted)
     np.testing.assert_array_equal(api.kmer_spectrum(g, 50),
                                   api.kmer_spectrum(c, 50))
+
+
+# -- the round-3 probes P5-P8 and the command line on the card -----------------
+
+def dev32(a, dev):
+    return torch.from_numpy(np.asarray(a).view(np.int32).copy()).to(dev)
+
+
+@pytest.mark.parametrize("case", ["ref 512", "ref 8", "overlap", "chain",
+                                  "odd r", "outside", "spread"])
+def test_p5_kernel_matches_plain(cuda, case):
+    """P5 equals the sequential plain version bitwise, with write windows
+    that overlap (the TPU probe's own 64 steps of 512 rows do), chains of
+    windows one row apart, repeats, R off the kernel's 128-row chunk, and
+    steps whose window lies outside x."""
+    rng = np.random.default_rng(55)
+    rows = 1 << 12
+    x = rng.integers(0, 2 ** 32, size=(rows, 128), dtype=np.uint32)
+    r, offs = {
+        "ref 512": (512, sort_probes_r3.reference_row_offsets(rows, 512, 64)),
+        "ref 8": (8, sort_probes_r3.reference_row_offsets(rows, 8, 64)),
+        "overlap": (300, rng.integers(0, 1200, size=500)),
+        "chain": (130, np.arange(400) % 350),
+        "odd r": (1, rng.integers(0, 64, size=300)),
+        "outside": (200, np.array([0, 100, 3897, -1, 3896, 2 ** 31 - 1, 300,
+                                   -2 ** 31, 4096, 150])),
+        "spread": (8, sort_probes_r3.spread_row_offsets(rows, 8)),
+    }[case]
+    xs, os_ = dev32(x, cuda), torch.from_numpy(
+        np.asarray(offs).astype(np.int32)).to(cuda)
+    before = cuda_probes_r3.dyn_copy_2d.launches
+    got = cuda_probes_r3.dyn_copy_2d(xs, os_, r)
+    torch.cuda.synchronize()
+    assert cuda_probes_r3.dyn_copy_2d.launches == before + 1
+    want = cuda_probes_r3.plain_dyn_copy_2d(xs, os_, r)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), cuda_probes_r3.dyn_copy_2d(
+        xs.cpu(), os_.cpu(), r))
+    if case != "outside":
+        assert bool(got.any())
+
+
+@pytest.mark.parametrize("n_rec", [1, 7, 8, 4096, 10_001])
+def test_p6_kernel_matches_plain(cuda, n_rec):
+    rng = np.random.default_rng(66)
+    rows = 1 << 13
+    x = dev32(rng.integers(0, 2 ** 32, size=(rows, 128), dtype=np.uint32),
+              cuda)
+    offs = rng.integers(0, rows - 3, size=n_rec).astype(np.int32)
+    offs[:3] = (0, rows - 4, rows - 3)[: min(3, n_rec)]  # the last: outside
+    offs[-1] = -1 if n_rec > 4 else offs[-1]
+    offs = torch.from_numpy(offs).to(cuda)
+    before = cuda_probes_r3.small_copy.launches
+    got = cuda_probes_r3.small_copy(x, offs)
+    torch.cuda.synchronize()
+    assert cuda_probes_r3.small_copy.launches == before + 1
+    assert torch.equal(got, cuda_probes_r3.plain_small_copy(x, offs))
+
+
+@pytest.mark.parametrize("granule", [1024, 8, 1])
+def test_p7_kernel_matches_plain_and_p2(cuda, granule):
+    rng = np.random.default_rng(77)
+    n = 1 << 20
+    x = dev32(rng.integers(0, 2 ** 32, size=n, dtype=np.uint32), cuda)
+    offs = np.concatenate([
+        sort_probes.reference_offsets(n, granule),
+        sort_probes.spread_offsets(n, granule, n // cuda_probes.CH),
+        np.array([0, n - cuda_probes.CH, 1, 2, 3, -5, n - 100, 2 ** 31 - 1],
+                 np.int32)])
+    offs = torch.from_numpy(offs).to(cuda)
+    before = cuda_probes_r3.async_copy.launches
+    got = cuda_probes_r3.async_copy(x, offs)
+    torch.cuda.synchronize()
+    assert cuda_probes_r3.async_copy.launches == before + 1
+    assert torch.equal(got, cuda_probes.dyn_copy(x, offs))  # P2, edges too
+    inside = (offs >= 0) & (offs <= n - cuda_probes.CH)
+    assert torch.equal(
+        got.reshape(-1, cuda_probes.CH)[inside],
+        cuda_probes_r3.plain_async_copy(x, offs[inside]).reshape(
+            -1, cuda_probes.CH))
+    # a view off the 16-byte boundary: every window takes the 4-byte copies
+    assert torch.equal(cuda_probes_r3.async_copy(x[1:], offs[:64]),
+                       cuda_probes_r3.plain_async_copy(x[1:], offs[:64]))
+
+
+@pytest.mark.parametrize("n", [4, 128, 1 << 12, (1 << 20) + 4, 1 << 22])
+def test_p8_kernel_matches_plain(cuda, n):
+    rng = np.random.default_rng(88)
+    tab = dev32(rng.integers(0, 2 ** 32, size=(8, 128), dtype=np.uint32),
+                cuda)
+    idx = rng.integers(0, 1024, size=n).astype(np.int32)
+    idx[:: 97] = rng.integers(-2 ** 31, 2 ** 31, size=len(idx[:: 97]))
+    idx[:4] = (0, 1023, 1024, -1)
+    idx = torch.from_numpy(idx).to(cuda)
+    before = cuda_probes_r3.smem_gather.launches
+    got = cuda_probes_r3.smem_gather(tab, idx)
+    torch.cuda.synchronize()
+    assert cuda_probes_r3.smem_gather.launches == before + 1
+    assert torch.equal(got, cuda_probes_r3.plain_smem_gather(tab, idx))
+    assert got[2].item() == 0 and got[3].item() == 0
+    assert got[1].item() == tab.reshape(-1)[1023].item()
+
+
+def test_r3_probes_reject_what_they_do_not_take(cuda):
+    x = torch.zeros((64, 128), dtype=torch.int32, device=cuda)
+    offs = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        cuda_probes_r3.dyn_copy_2d(x, offs.cpu(), 8)
+    with pytest.raises(ValueError):
+        cuda_probes_r3.dyn_copy_2d(x.t().contiguous().t(), offs, 8)
+    with pytest.raises(TypeError):
+        cuda_probes_r3.small_copy(x.float(), offs)
+    with pytest.raises(ValueError):
+        cuda_probes_r3.async_copy(x.reshape(-1), offs.cpu())
+    with pytest.raises(ValueError):  # 3 indices: no multiple of 4
+        cuda_probes_r3.smem_gather(x[:8], offs[:3])
+    with pytest.raises(ValueError):
+        cuda_probes_r3.smem_gather(x[:8], offs.cpu())
+
+
+def test_r3_probe_entry_point_on_the_card(cuda, capsys):
+    res = sort_probes_r3.run(20, device=cuda)
+    out = capsys.readouterr().out
+    assert out.count("ok=True") == 17 and "ok=False" not in out
+    assert res["R2"][0]["ref"]["rows_written"] < 64 * 512
+
+
+def test_cli_count_on_card_matches_cpu(cuda, tmp_path, capsys):
+    """The count verb on the card (uploads through the pinned buffers) and
+    with --device cpu: one store."""
+    import json
+
+    from kmer_hasher_tpu_torch import __main__ as cli
+    from kmer_hasher_tpu_torch.utils import checkpoint
+
+    rng = np.random.default_rng(99)
+    path, _probe = threshold_file(tmp_path, rng, 11)
+    infos = {}
+    for dev in ("cuda", "cpu"):
+        capsys.readouterr()
+        cli.main(["count", path, "-k", "11", "--min-q", "12", "--ll-mode",
+                  "hybrid", "--batch-rows", "100", "-o",
+                  str(tmp_path / f"{dev}.npz"), "--device", dev])
+        infos[dev] = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        infos[dev].pop("out")
+    assert infos["cuda"] == infos["cpu"]
+    g, c = (checkpoint.load_count_store(tmp_path / f"{dev}.npz", device="cpu")
+            for dev in ("cuda", "cpu"))
+    assert g.n_unique > 0 and torch.equal(g.keys, c.keys)
+    assert torch.equal(g.cnt, c.cnt)

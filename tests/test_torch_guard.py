@@ -84,6 +84,40 @@ dr.add_kmers(torch.tensor([0x12, 0x25, 0x31, 0x13]), torch.ones(4, dtype=torch.b
 assert sorted(dr.counts_dict()) == [0x12, 0x13, 0x25] and dr._admit_frozen
 for name in ("probes.sort_probes", "probes.cuda_probes", "probes._common"):
     assert "kmer_hasher_tpu_torch." + name in sys.modules, name
+# the round-3 probe entry on the CPU, the command line (every verb) over the
+# native reader where it builds, and the parameter types
+from kmer_hasher_tpu_torch.probes import sort_probes_r3
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    sort_probes_r3.main(["17", "--device", "cpu"])
+assert out.getvalue().count("ok=True") == 17, out.getvalue()
+from kmer_hasher_tpu_torch import __main__ as cli, params
+from kmer_hasher_tpu_torch.io import native
+assert params.RpParams.from_r_vector([21, 20, 20, 1, -1, 0, 1, 0]).k == 21
+with tempfile.TemporaryDirectory() as d:
+    d = pathlib.Path(d)
+    (d / "ref.fa").write_text(">s\n" + "ACGTTGCAGGACTTGACCAT" * 6 + "\n")
+    (d / "r.fq").write_text("".join(
+        f"@r{i}\n{'ACGTTGCAGGACTTGACCAT' * 3}\n+\n{'I' * 60}\n"
+        for i in range(5)))
+    with contextlib.redirect_stdout(io.StringIO()) as out, \
+            contextlib.redirect_stderr(io.StringIO()):
+        cpu = ["--device", "cpu"]
+        cli.main(["index", str(d / "ref.fa"), "-k", "9", "-o",
+                  str(d / "i.npz")] + cpu)
+        cli.main(["tables", str(d / "i.npz"), "-o", str(d / "t")] + cpu)
+        cli.main(["query", str(d / "i.npz"), str(d / "ref.fa"), "-k", "9",
+                  "-o", str(d / "q.npy")] + cpu)
+        cli.main(["count", str(d / "r.fq"), "-k", "11", "--ll-mode", "hybrid",
+                  "-o", str(d / "s.npz")] + cpu)
+        cli.main(["spectrum", str(d / "s.npz")] + cpu)
+        cli.main(["depth", str(d / "s.npz"), str(d / "ref.fa"), "-k", "11",
+                  "-o", str(d / "d.npy")] + cpu)
+    assert '"reader": "%s"' % native.reader_name() in out.getvalue()
+    if native.available():
+        assert len(native.read_fastx(str(d / "r.fq"))) == 5
+for name in ("__main__", "params", "io.native", "probes.sort_probes_r3",
+             "probes.cuda_probes_r3"):
+    assert "kmer_hasher_tpu_torch." + name in sys.modules, name
 import chip_smoke  # the smoke script's own imports (it runs only as main)
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
@@ -107,7 +141,8 @@ def test_sources_name_no_jax():
     assert len(sources) >= 20
     names = {p.name for p in sources}
     assert {"merge_sort.py", "cuda_merge.py", "cuda_probes.py",
-            "sort_probes.py"} <= names
+            "sort_probes.py", "cuda_probes_r3.py", "sort_probes_r3.py",
+            "__main__.py", "params.py", "native.py"} <= names
     for path in sources + [REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             s = line.strip()
@@ -144,6 +179,21 @@ CALLS = {
     "probes.sort_probes.main": lambda api, ck, p: __import__(
         "kmer_hasher_tpu_torch.probes.sort_probes",
         fromlist=["main"]).main(["14"]),
+    "probes.sort_probes_r3.run": lambda api, ck, p: __import__(
+        "kmer_hasher_tpu_torch.probes.sort_probes_r3",
+        fromlist=["run"]).run(17),
+    "probes.sort_probes_r3.main": lambda api, ck, p: __import__(
+        "kmer_hasher_tpu_torch.probes.sort_probes_r3",
+        fromlist=["main"]).main(["17"]),
+    "cli count": lambda api, ck, p: __import__(
+        "kmer_hasher_tpu_torch.__main__", fromlist=["main"]).main(
+            ["count", p["fq"], "-k", "5", "-o", str(p["store"]) + ".out"]),
+    "cli spectrum": lambda api, ck, p: __import__(
+        "kmer_hasher_tpu_torch.__main__", fromlist=["main"]).main(
+            ["spectrum", str(p["store"])]),
+    "cli tables": lambda api, ck, p: __import__(
+        "kmer_hasher_tpu_torch.__main__", fromlist=["main"]).main(
+            ["tables", str(p["index"]), "-o", str(p["index"]) + ".t"]),
     "load_index": lambda api, ck, p: ck.load_index(p["index"]),
     "load_count_store": lambda api, ck, p: ck.load_count_store(p["store"]),
     "index_from_numpy": lambda api, ck, p: ck.index_from_numpy(

@@ -21,9 +21,11 @@ from kmer_hasher_tpu_torch.probes import sort_probes
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
-@pytest.fixture
-def jax_probes(monkeypatch):
-    """(the JAX probe module, the list its pallas calls are recorded in)."""
+def load_recording(monkeypatch, script: str):
+    """(the JAX probe script ``tools/chip_probes/<script>`` as a module, the
+    list its pallas calls are recorded in). ``pallas_call`` is wrapped to
+    pass ``interpret=True`` and to record every call's inputs and output as
+    numpy. ``test_torch_probes_r3.py`` loads the round-3 script with it."""
     calls = []
     real = pl.pallas_call
 
@@ -39,10 +41,17 @@ def jax_probes(monkeypatch):
 
     monkeypatch.setattr(pl, "pallas_call", recording)
     spec = importlib.util.spec_from_file_location(
-        "jax_sort_probes", REPO / "tools" / "chip_probes" / "sort_probes.py")
+        "jax_" + script.removesuffix(".py"),
+        REPO / "tools" / "chip_probes" / script)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod, calls
+
+
+@pytest.fixture
+def jax_probes(monkeypatch):
+    """(the JAX probe module, the list its pallas calls are recorded in)."""
+    return load_recording(monkeypatch, "sort_probes.py")
 
 
 def i32(a: np.ndarray) -> torch.Tensor:
