@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the position-index path
 (also through the merge sort behind KMH_MERGE_SORT=1), the quality-filtered
-counting path, the per-base-threshold entries, the sort-design probes of
-both rounds, the count store's spill regime with its ranged out-of-core
-fold, and the command line over the native reader, end to end.
+counting path (also into 8 key-hash shards), the per-base-threshold
+entries, the sort-design probes of both rounds and the DMA probes, the
+count store's spill regime with its ranged out-of-core fold, and the
+command line over the native reader, end to end.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -25,7 +26,10 @@ is nonzero:
              overlap; a gather of 2 KB records; P2's copies through
              cp.async; a gather from a table in shared memory; at the TPU
              probes' shapes, at 2^26 elements and on edge inputs) the same
-             way;
+             way; the DMA probe kernels P9 (row windows copied in step order
+             through a ring of shared-memory stages, and D2 with the offsets
+             computed) and P10 (a per-lane lookup table) at the TPU probes'
+             shapes, at 2^26 and on edge inputs, over the whole output;
 4. main (index) — make_kmer_hash(k=32) of a 40,000,000-base sequence,
              kmer_pos(2|8), the full pair drain, then a k=21 index and
              seq_kmer_pos with a 1,000,000-base query, with checks;
@@ -47,7 +51,15 @@ is nonzero:
              where hybrid flags reads and re-scans them in f64, against
              exact. Kernel launches are counted per path (index, merge-sort
              index, counting, file, threshold, probes, spill, probes_r3,
-             cli), set to 0 just before each and read just after;
+             cli, probes_dma, sharded), set to 0 just before each and read
+             just after;
+   main (sharded) — the counting cell's reads through
+             ShardedCountStore(21, make_mesh(8)) by the same loop, then
+             spectrum and depth: the union of the 8 shard tables equals the
+             single store's table bitwise, each shard holds only its
+             owners' keys, spectra, total_added and depth are equal; later,
+             count_kmers_fq_sh_rp(mesh=make_mesh(8)) of the command-line
+             phase's FASTQ file gives the same shards;
    main (probes) — python -m kmer_hasher_tpu_torch.probes.sort_probes at
              log_n 26 through its entry point: E1 (P1), E2 at three granules
              (P2), E3 (P3), E3b (P4), E4 and E5 (plain sorts);
@@ -55,6 +67,10 @@ is nonzero:
              at log_n 26 through its entry point: R1 and R5 (plain), R2 at
              512 and 8 rows (P5), R2b (P6), R4 (P8, beside P1), R3 at two
              granules (P7, beside P2);
+   main (probes dma) — python -m kmer_hasher_tpu_torch.probes.dma_probes_r3
+             at log_n 26 through its entry point: D1 at 512, 64 and 8 rows
+             and D2 at 512 (P9, beside P5), D3 at 2^20 and 2^26 (P10,
+             beside P1), D4 at 2^26 and 2^24 (plain networks, beside B3);
    main (cli) — the counting cell's reads written as one FASTQ file, then in
              a subprocess python -m kmer_hasher_tpu_torch count (-k 21
              --min-q 20 --ll-mode hybrid): the reader must be the native
@@ -82,15 +98,17 @@ is nonzero:
              three likelihood modes and a two-source store; a spilled store
              (memory and disk), a ranged fold and a drop-mode
              count_kmers_fq, bitwise; the count verb with --device cpu on a
-             small file;
+             small file; 8 shards spilling to memory and to files, and the
+             8-shard checkpoint onto 8 shards and into one store;
 7. times   — B1, B2 and B3 vs plain (B3 also beside torch.sort of the
              concatenated keys, the one library call that computes a
-             merge), P1-P8 vs plain and vs one library call each where one
-             exists,
+             merge), P1-P10 vs plain and vs one library call each where
+             one exists,
              build_index_arrays with the flag off and on, the index
              path, one threshold_scan batch, and the counting rates E2E /
              FUSED / FSM with the share of tier merges, of the fold, and
-             the device's idle share over the whole 64-batch loop.
+             the device's idle share over the whole 64-batch loop; the
+             counting cell through one store and through 8 shards in turns.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports neither JAX nor kmer_hasher_tpu.
@@ -150,6 +168,10 @@ CLI_REF_LEN = 4_000_000  # the index verbs' FASTA: holds the repeat and the quer
 # the spill regime of tools/chip_probes/spill_regime.py in the JAX package
 SPILL_BATCHES, SPILL_BYTES, SPILL_FOLD_BUDGET = 244, 3 << 29, 3 << 30
 SPILL_MIN_DISTINCT = 500_000_000
+# the DMA probes: the TPU script's row counts per copy and its gather size
+DMA_ROWS, DMA_GATHER_REF_LOG_N = (512, 64, 8), 20
+# the sharded store: 8 logical shards; card vs CPU on a cut of the cell
+SHARDS, SH_CPU_BATCHES, SH_CPU_ROWS, SH_SPILL = 8, 8, 4096, 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 NA = -(2 ** 31)
@@ -766,16 +788,17 @@ def draw_reads(genome: torch.Tensor, gen, rows: int):
 
 
 def counted_wrappers():
-    """The eleven kernels' wrappers in the order B1, B2, B3, P1 ... P8."""
+    """The thirteen kernels' wrappers in the order B1, B2, B3, P1 ... P10."""
     from kmer_hasher_tpu_torch.ops import cuda_encode as b1
     from kmer_hasher_tpu_torch.ops import cuda_merge as b3
     from kmer_hasher_tpu_torch.ops import cuda_scan as b2
     from kmer_hasher_tpu_torch.probes import cuda_probes as cp
+    from kmer_hasher_tpu_torch.probes import cuda_probes_dma as cpd
     from kmer_hasher_tpu_torch.probes import cuda_probes_r3 as cp3
 
     return (b1.encode, b2.scan, b3.merge, cp.copy, cp.dyn_copy, cp.roll_rows,
             cp.roll_flat, cp3.dyn_copy_2d, cp3.small_copy, cp3.async_copy,
-            cp3.smem_gather)
+            cp3.smem_gather, cpd.pipelined_copy, cpd.lane_gather)
 
 
 def reset_launches():
@@ -784,7 +807,7 @@ def reset_launches():
 
 
 def read_launches():
-    """(B1, B2, B3, P1, ..., P8) launches since the last reset."""
+    """(B1, B2, B3, P1, ..., P10) launches since the last reset."""
     return tuple(w.launches for w in counted_wrappers())
 
 
@@ -1359,10 +1382,10 @@ def phase_main_probes():
     # every probe line is one check launch plus one timing's launches
     per = 1 + _common.calls_per_timing(torch.device("cuda"))
     want = (0, 0, 0, per, 2 * len(sort_probes.GRANULES) * per, per, per,
-            0, 0, 0, 0)
+            0, 0, 0, 0, 0, 0)
     if launches != want:
         raise AssertionError(f"the probe entry launched (B1, B2, B3, P1, ..., "
-                             f"P8) {launches}, want {want}")
+                             f"P10) {launches}, want {want}")
     lines = 2 + 2 * len(res["E2"]) + 1 + len(res["E4"]) + len(res["E5"])
     log(f"[main] probes: sort_probes at log_n {PROBE_LOG_N} through its "
         f"entry point, {lines} lines, all ok (a probe that is not raises), "
@@ -1526,10 +1549,10 @@ def phase_main_probes_r3():
     n_r3 = 2 * len(sort_probes_r3.GRANULES)
     # R4 times P1 beside P8, R3 times P2 beside P7 (no check launch)
     want = (0, 0, 0, 2 * timed, n_r3 * timed, 0, 0,
-            n_r2 * per, 2 * per, n_r3 * per, 2 * per)
+            n_r2 * per, 2 * per, n_r3 * per, 2 * per, 0, 0)
     if launches != want:
         raise AssertionError(f"the round-3 probe entry launched (B1, B2, B3, "
-                             f"P1, ..., P8) {launches}, want {want}")
+                             f"P1, ..., P10) {launches}, want {want}")
     lines = (len(res["R1"]) + len(res["R5"]) + n_r2 + 2 + len(res["R4"])
              + n_r3)
     log(f"[main] probes r3: sort_probes_r3 at log_n {PROBE_LOG_N} through "
@@ -2130,6 +2153,437 @@ def phase_times_probes(cases: dict, card: str) -> dict:
     return out
 
 
+# -- the DMA probes P9, P10 -----------------------------------------------------
+
+def probe_dma_cases(gen) -> dict:
+    """P9's and P10's inputs on the card, by kernel and shape name. "ref"
+    shapes are the TPU probes' (2^24 elements, the permutation of the
+    windows at 512, 64 and 8 rows; 2^20 indices), "full" the full-card ones
+    (2^26 elements), "static" D2 (offsets computed, not read), the others
+    edge inputs: overlapping write windows, steps outside x, one step, D2 on
+    rows that R does not divide, indices outside the table."""
+    from kmer_hasher_tpu_torch.probes import cuda_probes_dma as cpd
+    from kmer_hasher_tpu_torch.probes import cuda_probes_r3 as cp3
+    from kmer_hasher_tpu_torch.probes import dma_probes_r3 as dp
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a).astype(np.int32)).cuda()
+
+    n_ref, n_full = 1 << PROBE_REF_LOG_N, 1 << PROBE_LOG_N
+    x = rand32(gen, (n_full,))
+    x2, x2_ref = x.reshape(-1, cp3.COLS), x[:n_ref].reshape(-1, cp3.COLS)
+    rows_ref, rows_full = x2_ref.shape[0], x2.shape[0]
+    rng = np.random.default_rng(SEED + 6)
+    cases = {"P9": {}, "P10": {}}
+    for r in DMA_ROWS:
+        cases["P9"][f"ref, R={r}"] = (x2_ref, dev(
+            dp.window_offsets(rows_ref, r)), r)
+        cases["P9"][f"full, R={r}"] = (x2, dev(
+            dp.window_offsets(rows_full, r)), r)
+    cases["P9"]["static, ref, R=512"] = (x2_ref, None, 512)
+    cases["P9"]["static, full, R=512"] = (x2, None, 512)
+    cases["P9"]["overlapping, R=512"] = (x2_ref, dev(
+        rng.integers(0, 20_000, size=4096)), 512)
+    cases["P9"]["steps outside x, R=200"] = (x2_ref, dev(
+        [0, 100, rows_ref - 200, -1, rows_ref - 199, 2 ** 31 - 1, 300,
+         -2 ** 31, rows_ref, 150]), 200)
+    cases["P9"]["T=1"] = (x2_ref, dev([0]), rows_ref)
+    cases["P9"]["static T=1"] = (x2_ref, None, rows_ref)
+    cases["P9"]["static, R=777"] = (x2_ref, None, 777)
+    tab = rand32(gen, (cpd.TABLE_ROWS, cp3.COLS))
+    for name, n in (("ref", 1 << DMA_GATHER_REF_LOG_N), ("full", n_full)):
+        cases["P10"][name] = (tab, torch.randint(
+            0, cpd.TABLE_ROWS, (n // cp3.COLS, cp3.COLS), generator=gen,
+            device="cuda", dtype=torch.int32))
+    idx = torch.randint(-5000, 5000, (1 << 9, cp3.COLS), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    idx[0, :6] = torch.tensor([0, 1023, 1024, -1, 2 ** 31 - 1, -2 ** 31],
+                              dtype=torch.int32)
+    cases["P10"]["indices outside the table"] = (tab, idx)
+    return cases
+
+
+def probe_dma_kernels():
+    """name -> (wrapper, plain version)."""
+    from kmer_hasher_tpu_torch.probes import cuda_probes_dma as cpd
+
+    return {"P9": (cpd.pipelined_copy, cpd.plain_pipelined_copy),
+            "P10": (cpd.lane_gather, cpd.plain_lane_gather)}
+
+
+def p9_source_rows(x, offs, r) -> np.ndarray:
+    """numpy's loop over P9's steps on row numbers (D2's offsets where
+    ``offs`` is None): per output row the x row that stands, -1 for none."""
+    from kmer_hasher_tpu_torch.probes import sort_probes_r3 as sp3
+
+    offs_h = (np.arange(x.shape[0] // r, dtype=np.int64) * r
+              if offs is None else offs.cpu().numpy())
+    return sp3.sequential_source_rows(x.shape[0], offs_h, r)
+
+
+def phase_kernels_probes_dma(cases: dict) -> dict:
+    """P9 and P10 against their plain versions on the same CUDA tensors,
+    bitwise over the whole output; P9 also against numpy's loop over row
+    numbers. Returns the worst max_abs_err by kernel."""
+    worst = {}
+    for name, (fn, plain) in probe_dma_kernels().items():
+        worst[name] = 0.0
+        for shape, args in cases[name].items():
+            got = fn(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            worst[name] = max(worst[name], err)
+            if err or got.shape != want.shape:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {shape}, max_abs_err={err}")
+            if name == "P9":
+                x, offs, r = args
+                src = p9_source_rows(x, offs, r)
+                live = torch.from_numpy(src >= 0).cuda()
+                rows = torch.from_numpy(np.maximum(src, 0)).cuda()
+                if not (torch.equal(got[live], x[rows[live]])
+                        and not bool(got[~live].any())):
+                    raise AssertionError(
+                        f"P9 disagrees with numpy's loop: {shape}")
+            else:
+                tab, idx = args
+                ok = (idx >= 0) & (idx < tab.shape[0])
+                if bool(got[~ok].any()):
+                    raise AssertionError("P10 read outside its table")
+            del got, want
+        log(f"[kernels] {name} == plain, bitwise over the whole output, on "
+            f"{len(cases[name])} inputs: {', '.join(cases[name])} "
+            f"(max_abs_err {worst[name]})"
+            + ("; equal to numpy's loop in step order as well"
+               if name == "P9" else "; 0 for every index outside [0, 1024)"))
+    return worst
+
+
+def phase_main_probes_dma():
+    """The DMA probe entry point as a user runs it, at log_n 26."""
+    from kmer_hasher_tpu_torch.probes import _common, dma_probes_r3
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = dma_probes_r3.run(PROBE_LOG_N)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    timed = _common.calls_per_timing(torch.device("cuda"))
+    per = 1 + timed  # a line: one check launch plus one timing's
+    n_copy = len(dma_probes_r3.COPY_PROBES)
+    # D1/D2 time P5 beside P9, D3 P1 beside P10, D4 runs B3 (check + timed)
+    want = (0, 0, 2 * per, 2 * timed, 0, 0, 0, n_copy * timed, 0, 0, 0,
+            n_copy * per, 2 * per)
+    if launches != want:
+        raise AssertionError(f"the DMA probe entry launched (B1, B2, B3, "
+                             f"P1, ..., P10) {launches}, want {want}")
+    lines = sum(len(v) for v in res.values())
+    log(f"[main] probes dma: dma_probes_r3 at log_n {PROBE_LOG_N} through "
+        f"its entry point, {lines} lines, all ok (a probe that is not "
+        f"raises), {wall:.3f} s; launches P9 {launches[11]}, P10 "
+        f"{launches[12]} (per line 1 check + {timed} timed), and beside them "
+        f"P5 {launches[7]}, P1 {launches[3]}, B3 {launches[2]}")
+    return launches
+
+
+def phase_times_probes_dma(cases: dict, card: str) -> dict:
+    """P9 and P10 per launch at the reference, full and D2 shapes, beside
+    the plain version, P5 (P9) or P1's copy of the indices (P10), and one
+    PyTorch call that computes the same function with its int64 index
+    ready: the gather and scatter of whole windows (P9, where the windows
+    tile x), ``torch.gather`` along the table's rows (P10)."""
+    from kmer_hasher_tpu_torch.probes import cuda_probes as cp
+    from kmer_hasher_tpu_torch.probes import cuda_probes_dma as cpd
+    from kmer_hasher_tpu_torch.probes import cuda_probes_r3 as cp3
+
+    def library(name, args):
+        if name == "P10":
+            tab, idx64 = args[0], args[1].long()
+            return lambda: torch.gather(tab, 0, idx64)
+        x, offs, r = args
+        steps = x.shape[0] // r
+        rd = (torch.arange(steps, device="cuda") if offs is None
+              else offs.long() // r)
+        wr = torch.flip(rd, [0])
+        blocks = x.reshape(steps, -1)
+        out = torch.empty_like(blocks)
+
+        def f():
+            out[wr] = blocks[rd]
+        return f
+
+    out = {}
+    for name, (fn, plain) in probe_dma_kernels().items():
+        out[name] = {}
+        for shape, args in cases[name].items():
+            if not shape.startswith(("ref", "full", "static, ref",
+                                     "static, full")):
+                continue
+            big = args[0].numel() > 1 << 25 or args[1] is not None and (
+                args[1].numel() > 1 << 25)
+            ms = cuda_ms(lambda: fn(*args), iters=20 if big else 200)
+            plain_ms = cuda_ms(lambda: plain(*args), iters=1, warmup=1)
+            lib_ms = cuda_ms(library(name, args), iters=10 if big else 100)
+            row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms}
+            if name == "P9":
+                x, offs, r = args
+                offs5 = (cpd.static_offsets(x.shape[0], r, x.device)
+                         if offs is None else offs)
+                row["p5_ms"] = cuda_ms(lambda: cp3.dyn_copy_2d(x, offs5, r),
+                                       iters=20 if big else 200)
+                # the rows that stand are read once, the whole output is
+                # written once, the offsets (none for D2) read once
+                moved = (512 * int((p9_source_rows(x, offs, r) >= 0).sum())
+                         + 4 * x.numel()
+                         + (0 if offs is None else 4 * offs.numel()))
+                extra = (f"; P5 {row['p5_ms']:.4f} ms for the same call "
+                         f"(its zero-fill included; P9 writes zeros only to "
+                         f"rows no step owns)")
+            else:
+                idx = args[1]
+                row["copy_ms"] = cuda_ms(lambda: cp.copy(idx),
+                                         iters=20 if big else 200)
+                moved = 8 * idx.numel() + 4 * cpd.TABLE_ROWS * cp3.COLS
+                extra = (f" = {ms * 1e6 / idx.numel():.4f} ns/element; P1's "
+                         f"copy of the indices {row['copy_ms']:.4f} ms: "
+                         f"{row['copy_ms'] / ms:.1%} of its rate")
+            b_ms, b_by = bound(moved, 0)
+            row.update(bytes=moved, bound_ms=b_ms, bound_by=b_by)
+            out[name][shape] = row
+            log(f"[times] {name}, {shape}: kernel {ms:.4f} ms = "
+                f"{moved / ms / 1e9:.3f} TB/s of {moved / 1e6:.3f} MB "
+                f"(bound {b_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+                f"call {lib_ms:.4f} ms{extra} (CUDA events) | {card}")
+    return out
+
+
+# -- the sharded count store ----------------------------------------------------
+
+def sharded_union_is(st, single) -> bool:
+    """Every shard sorted, unique and holding only its own keys, and the
+    shard tables merged equal to the single store's, bitwise."""
+    from kmer_hasher_tpu_torch.parallel import owner_of_keys
+
+    st.flush()
+    single.flush()
+    for d, s in enumerate(st.shards):
+        if not (bool((s.keys[1:] > s.keys[:-1]).all())
+                and bool((owner_of_keys(s.keys, st.n_shards) == d).all())):
+            return False
+    keys = torch.cat([s.keys for s in st.shards])
+    order = torch.sort(keys)
+    return (torch.equal(order.values, single.keys) and torch.equal(
+        torch.cat([s.cnt for s in st.shards])[order.indices], single.cnt)
+        and bool((st.total_added == single.total_added).all()))
+
+
+def same_shards(a, b) -> bool:
+    return a.n_shards == b.n_shards and all(
+        torch.equal(x.keys.cpu(), y.keys.cpu())
+        and torch.equal(x.cnt.cpu(), y.cnt.cpu())
+        for x, y in zip(a.shards, b.shards)) and bool(
+            (a.total_added == b.total_added).all())
+
+
+def sharded_merges(st) -> int:
+    tm = st.shard_timings()
+    return tm["tier_merges"] + tm["fold_merges"]
+
+
+def phase_main_sharded(batches, main: dict):
+    """The counting cell's reads through ShardedCountStore(21,
+    make_mesh(8)) by the loop the file entry uses, then spectrum and depth:
+    the union of the shard tables equals the single store of the counting
+    phase bitwise, every shard holds only its owners' keys, spectra,
+    total_added and depth are equal. Launches counted (path sharded)."""
+    from kmer_hasher_tpu_torch import api, counting
+    from kmer_hasher_tpu_torch.parallel import ShardedCountStore, make_mesh
+
+    k = K_COUNT
+    single = main["store"]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = ShardedCountStore(k, make_mesh(SHARDS))
+    stats = {}
+    counting.count_batches(st, batches, k, min_q=MIN_Q, exact_ll="hybrid",
+                           stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spec = api.kmer_spectrum(st, 255)
+    depth = api.seq_kmer_depth(st, main["stretch"], k)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if st.device.type != "cuda" or any(s.keys.device.type != "cuda"
+                                       for s in st.shards):
+        raise AssertionError("the sharded store does not live on the card")
+    if not sharded_union_is(st, single):
+        raise AssertionError("the 8 shard tables differ from the single "
+                             "store's table")
+    if not np.array_equal(spec, api.kmer_spectrum(single, 255)):
+        raise AssertionError("the sharded spectrum differs")
+    if not torch.equal(depth, main["depth"]):
+        raise AssertionError("seq_kmer_depth through the sharded lookup "
+                             "differs")
+    merges = sharded_merges(st)
+    if (launches[1] < len(batches) or launches[2] != merges or merges < 1
+            or launches[0] < 1):
+        raise AssertionError(f"the sharded path launched B1 {launches[0]}, "
+                             f"B2 {launches[1]} and B3 {launches[2]} times; "
+                             f"its shards merged two runs {merges} times")
+    tm = st.shard_timings()
+    log(f"[main] sharded: {len(batches)} batches x {ROWS:,} reads through "
+        f"ShardedCountStore({k}, make_mesh({SHARDS})), hybrid "
+        f"({stats.get('flagged_reads', 0):,} reads re-counted in f64): "
+        f"shards of {', '.join(f'{n:,}' for n in st.n_unique)} distinct; "
+        f"their union equals the single store's {single.n_unique:,}-row "
+        f"table bitwise, each shard holds only keys whose owner_hash is "
+        f"its own; spectrum(255), total_added and the depth track over "
+        f"{DEPTH_LEN:,} bases equal; {wall:.3f} s; {st.timings['routes']} "
+        f"routings; B1 launches {launches[0]}, B2 {launches[1]}, B3 "
+        f"{launches[2]} = {tm['tier_merges']} tier merges + "
+        f"{tm['fold_merges']} two-run folds over the shards")
+    return launches, {"store": st, "wall": wall}
+
+
+def phase_main_sharded_file(fq: Path, n_reads: int, staged, n_all: int,
+                            single_wall: float, card: str) -> None:
+    """count_kmers_fq_sh_rp(fq, mesh=make_mesh(8)) on the command-line
+    phase's FASTQ file: the same shard tables as the staged sharded store
+    (or, where the file holds fewer reads, the same table as one store of
+    the file)."""
+    from kmer_hasher_tpu_torch import api
+    from kmer_hasher_tpu_torch.parallel import make_mesh
+
+    k = K_COUNT
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = api.count_kmers_fq_sh_rp(str(fq), k=k, min_q=MIN_Q,
+                                  exact_ll="hybrid", mesh=make_mesh(SHARDS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if st.timings["reader"] != "native":
+        raise AssertionError(f"the sharded file entry read through "
+                             f"{st.timings['reader']}")
+    if n_reads == n_all:
+        ok, what = same_shards(st, staged), "the staged sharded store"
+    else:
+        ok = sharded_union_is(st, api.count_kmers_fq_sh_rp(
+            str(fq), k=k, min_q=MIN_Q, exact_ll="hybrid"))
+        what = "one store of the same file"
+    if not ok or launches[2] != sharded_merges(st):
+        raise AssertionError(f"the sharded file entry differs from {what}, "
+                             f"or launched B3 {launches[2]} times")
+    tm = st.timings
+    log(f"[main] sharded: count_kmers_fq_sh_rp(mesh=make_mesh({SHARDS})) of "
+        f"{n_reads:,} reads ({fq.stat().st_size / 1e6:.1f} MB FASTQ, "
+        f"native reader) equals {what}, shard by shard; {wall:.3f} s = "
+        f"{n_reads / wall:,.0f} reads/s (one store: {single_wall:.3f} s); "
+        f"parser busy {tm['parse_s']:.3f} s, waiting {tm['wait_s']:.3f} s, "
+        f"routing {tm['route_s']:.3f} s; B2 launches {launches[1]}, B3 "
+        f"{launches[2]} | {card}")
+
+
+def phase_card_vs_cpu_sharded(batches, tmp: Path) -> None:
+    """8 shards on the card against 8 on the CPU: a spill budget below one
+    run, to memory and to files; an 8-shard checkpoint round trip, and its
+    load into one store against one CPU store of the same reads."""
+    from kmer_hasher_tpu_torch import api, counting
+    from kmer_hasher_tpu_torch.parallel import ShardedCountStore, make_mesh
+    from kmer_hasher_tpu_torch.utils import checkpoint
+
+    k = K_COUNT
+    cut = [tuple(a[:SH_CPU_ROWS] for a in b) for b in batches[:SH_CPU_BATCHES]]
+    on_cpu = [tuple(a.cpu() for a in b) for b in cut]
+    ref = ShardedCountStore(k, make_mesh(SHARDS, device="cpu"))
+    counting.count_batches(ref, on_cpu, k, min_q=MIN_Q, exact_ll="hybrid")
+    one = api.CountStore(k, device="cpu")
+    counting.count_batches(one, on_cpu, k, min_q=MIN_Q, exact_ll="hybrid")
+    spills = {}
+    for where, spill_dir in (("memory", None), ("files", tmp / "sh-spill")):
+        st = ShardedCountStore(k, make_mesh(SHARDS), spill_bytes=SH_SPILL,
+                               spill_dir=None if spill_dir is None
+                               else str(spill_dir))
+        counting.count_batches(st, cut, k, min_q=MIN_Q, exact_ll="hybrid")
+        spills[where] = st.shard_timings()["spills"]
+        if not spills[where] or not same_shards(st, ref):
+            raise AssertionError(f"the sharded store spilled to {where} "
+                                 f"{spills[where]} times and differs from "
+                                 f"the CPU's")
+        if spill_dir is not None and any(spill_dir.iterdir()):
+            raise AssertionError("spill files left after the fold")
+    p = tmp / "sharded.npz"
+    checkpoint.save_count_store(st, p)
+    back = checkpoint.load_count_store(p, mesh=make_mesh(SHARDS))
+    whole = checkpoint.load_count_store(p)
+    if not (same_shards(back, ref) and back.device.type == "cuda"
+            and torch.equal(whole.keys.cpu(), one.keys)
+            and torch.equal(whole.cnt.cpu(), one.cnt)):
+        raise AssertionError("the 8-shard checkpoint round trip differs")
+    log(f"[card-vs-cpu] sharded, {SH_CPU_BATCHES} batches x "
+        f"{SH_CPU_ROWS:,} reads, 8 shards: spill_bytes {SH_SPILL:,} (below "
+        f"one run) to memory ({spills['memory']} spills) and to files "
+        f"({spills['files']}), the shard tables equal the CPU's bitwise; the "
+        f"8-shard checkpoint restores onto 8 shards on the card and folds "
+        f"into one store equal to one CPU store of the reads")
+
+
+def phase_times_sharded(batches, card: str, sharded_wall: float) -> None:
+    """The counting cell through one store and through 8 shards, in turns
+    (one, shards, shards, one) in this call, with the host seconds of the
+    routing and of the tier merges and the device's busy time under
+    torch.profiler. No claim: the two are put side by side."""
+    from kmer_hasher_tpu_torch import api, counting
+    from kmer_hasher_tpu_torch.parallel import ShardedCountStore, make_mesh
+
+    k = K_COUNT
+    n_reads = len(batches) * ROWS
+
+    def make(kind):
+        return (api.CountStore(k) if kind == "one"
+                else ShardedCountStore(k, make_mesh(SHARDS)))
+
+    runs = {"one": [], "shards": []}
+    for kind in ("one", "shards", "shards", "one"):
+        st = make(kind)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counting.count_batches(st, batches, k, min_q=MIN_Q, exact_ll="hybrid")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tm = st.timings if kind == "one" else dict(
+            st.shard_timings(), route_s=st.timings["route_s"])
+        runs[kind].append((wall, tm))
+        del st
+    busy = {}
+    for kind in ("one", "shards"):
+        def window():
+            counting.count_batches(make(kind), batches, k, min_q=MIN_Q,
+                                   exact_ll="hybrid")
+        busy[kind] = device_busy_share(window)
+    for kind, label in (("one", "one CountStore"),
+                        ("shards", f"ShardedCountStore, {SHARDS} shards")):
+        wall, tm = min(runs[kind], key=lambda r: r[0])
+        h_wall, share = busy[kind]
+        dev = ("not measured (the trace holds no device time)"
+               if share is None else f"device busy {share * h_wall:.3f} s of "
+               f"host {h_wall:.3f} s, idle {1 - share:.1%}")
+        log(f"[times] counting cell through {label}: {wall:.3f} s = "
+            f"{n_reads / wall:,.0f} reads/s (in turns: "
+            f"{', '.join(f'{r[0]:.3f}' for r in runs[kind])} s"
+            + ("" if kind == "one" else f"; the main path's {sharded_wall:.3f}"
+               f" s") + f"); tier merges {tm['tier_merges']} taking "
+            f"{tm['tier_merge_s']:.3f} s of host clock, final folds "
+            f"{tm['fold_s']:.3f} s"
+            + (f", routing {tm['route_s']:.3f} s" if "route_s" in tm else "")
+            + f"; under torch.profiler {dev} | {card}")
+
+
 def merge_peak_factor(case) -> float:
     """Peak device bytes of one two-run ``merge_runs`` at the store shape
     over the bytes of its inputs (keys and one counter)."""
@@ -2158,7 +2612,7 @@ def bound(bytes_moved: float, ops: float):
 
 
 PATHS = ("index", "merge_sort_index", "counting", "file", "threshold",
-         "probes", "spill", "probes_r3", "cli")
+         "probes", "spill", "probes_r3", "cli", "probes_dma", "sharded")
 
 
 def main() -> None:
@@ -2182,6 +2636,10 @@ def main() -> None:
     gen_r3.manual_seed(SEED + 5)
     r3_cases = probe_r3_cases(gen_r3)
     worst_p.update(phase_kernels_probes_r3(r3_cases))
+    gen_dma = torch.Generator(device="cuda")
+    gen_dma.manual_seed(SEED + 6)
+    dma_cases = probe_dma_cases(gen_dma)
+    worst_p.update(phase_kernels_probes_dma(dma_cases))
     seq = make_sequence(rng, SEQ_LEN)
     reset_launches()
     _, t_k32 = phase_main(seq)
@@ -2196,15 +2654,21 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         more, fq, stats = phase_main_counting(genome, batches, Path(tmp))
         launches.update(more)
+        launches["sharded"], sh_stats = phase_main_sharded(batches, stats)
         launches["threshold"] = phase_main_threshold(fq)
         phase_card_vs_cpu_spill(batches, fq, Path(tmp))
         launches["cli"], cli_stats = phase_main_cli(seq, batches, stats,
                                                     Path(tmp), card)
+        phase_main_sharded_file(Path(tmp) / "reads.fq", cli_stats["reads"],
+                                sh_stats.pop("store"), len(batches) * ROWS,
+                                cli_stats["wall"], card)
         phase_card_vs_cpu_cli(Path(tmp) / "reads50k.fq", Path(tmp))
+        phase_card_vs_cpu_sharded(batches, Path(tmp))
     for key in ("store", "stretch", "depth"):
         del stats[key]
     launches["probes"] = phase_main_probes()
     launches["probes_r3"] = phase_main_probes_r3()
+    launches["probes_dma"] = phase_main_probes_dma()
     launches["spill"] = phase_main_spill(gen_p, card)
     by_path = [{p: launches[p][i] for p in PATHS}
                for i in range(len(counted_wrappers()))]
@@ -2221,7 +2685,10 @@ def main() -> None:
     del p_cases
     p_times.update(phase_times_probes_r3(r3_cases, card))
     del r3_cases
+    p_times.update(phase_times_probes_dma(dma_cases, card))
+    del dma_cases
     b2_ms, b2_plain = phase_times_counting(batches, card, stats)
+    phase_times_sharded(batches, card, sh_stats["wall"])
     # least time for the same work: every input byte read once, every output
     # byte written once; B1 does ~4 integer ops per base of each window, B2
     # ~60 float and integer ops per (read, position), B3 about log2(rows) +
@@ -2320,7 +2787,24 @@ def main() -> None:
              "full, granule 1"),
             ("P8", "P8 probe_smem_gather", "probe_smem_gather.cu", 232,
              "full"),
-        ), start=7)], "file_entry": cli_stats}))
+        ), start=7)] + [dict({
+        "name": title,
+        "route": "cuda",
+        "source": f"kmer_hasher_tpu_torch/csrc/{source}",
+        "replaces": f"tools/chip_probes/dma_probes_r3.py:{line}",
+        "launches": by_path[i]["probes_dma"],
+        "launches_by_path": by_path[i],
+        "max_abs_err": worst_p[name],
+        "shape": shape,
+        "by_shape": p_times[name],
+    }, **{key: p_times[name][shape][key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        for i, (name, title, source, line, shape) in enumerate((
+            ("P9", "P9 probe_pipelined_copy", "probe_pipelined_copy.cu", 44,
+             "full, R=512"),
+            ("P10", "P10 probe_lane_gather", "probe_lane_gather.cu", 117,
+             "full"),
+        ), start=11)], "file_entry": cli_stats}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -13,7 +13,11 @@ Every verb that computes takes ``--device`` and runs on the card
 (``cuda``) unless ``--device cpu`` is given; with no card the default
 raises. Saved indexes and stores are the JAX package's files: either
 package's CLI loads the other's. ``count`` adds to its JSON line which
-reader parsed the files (``reader``: ``native`` or ``python``).
+reader parsed the files (``reader``: ``native`` or ``python``). ``count
+--mesh N`` counts into N logical shards on the one device (``--mesh-slices
+S`` lays them out as S slices, which changes no result) and saves the
+sharded kind; ``--resume`` of such a file with ``--mesh N`` restores the
+shards, and ``spectrum`` / ``depth`` read it folded into one store.
 """
 from __future__ import annotations
 
@@ -89,27 +93,45 @@ def _same_file(a: str, b: str) -> bool:
         return os.path.abspath(a) == os.path.abspath(b)
 
 
-def _count_info(store, out: str) -> dict:
+def _count_info(store, out: str, mesh) -> dict:
     from .utils.metrics import most_common_kmer
 
-    return {"distinct": int(store.n_unique),
+    info = {"distinct": int(np.asarray(store.n_unique).sum()),
             "total_added": np.asarray(store.total_added).tolist(),
-            "out": out, "most_common": most_common_kmer(store),
-            "reader": store.timings.get("reader")}
+            "out": out}
+    if mesh is None:
+        info["most_common"] = most_common_kmer(store)
+    else:
+        info["shards"] = np.asarray(store.n_unique).tolist()
+    info["reader"] = store.timings.get("reader")
+    return info
+
+
+def _mesh(a):
+    """The shard group ``--mesh`` / ``--mesh-slices`` ask for, or None."""
+    if not a.mesh:
+        return None
+    from .parallel.mesh import make_hierarchical_mesh, make_mesh
+
+    if a.mesh_slices:
+        if a.mesh % a.mesh_slices:
+            raise SystemExit(f"--mesh {a.mesh} is not divisible by "
+                             f"--mesh-slices {a.mesh_slices}")
+        return make_hierarchical_mesh(a.mesh_slices, a.mesh // a.mesh_slices,
+                                      device=a.device)
+    return make_mesh(a.mesh, device=a.device)
 
 
 def cmd_count(a):
     from .api import count_kmers_fq_sh_rp
-    from .counting import MESH_NOT_PORTED
     from .utils import checkpoint as ckpt
 
-    if a.mesh or a.mesh_slices:
-        raise NotImplementedError(MESH_NOT_PORTED)
     exact_ll = {"exact": True, "fast": False, "hybrid": "hybrid"}[a.ll_mode]
+    mesh = _mesh(a)
     store = None
     progress = None
     if a.resume:
-        store = ckpt.load_count_store(a.resume, device=a.device)
+        store = ckpt.load_count_store(a.resume, mesh=mesh, device=a.device)
         progress = ckpt.load_progress(a.resume)
         if progress:
             print(f"resuming after {progress['reads_done']} reads of "
@@ -125,10 +147,10 @@ def cmd_count(a):
         store = count_kmers_fq_sh_rp(
             a.files if len(a.files) > 1 else a.files[0], k=a.k,
             min_q=a.min_q, source_n=a.source_n, source=a.source or 0,
-            report_every=a.report_every, exact_ll=exact_ll,
+            report_every=a.report_every, exact_ll=exact_ll, mesh=mesh,
             batch_rows=a.batch_rows or None, device=a.device)
         ckpt.save_count_store(store, a.out)
-        print(json.dumps(_count_info(store, a.out)))
+        print(json.dumps(_count_info(store, a.out, mesh)))
         return
     counted_any = False
     for i, path in enumerate(a.files):
@@ -146,7 +168,7 @@ def cmd_count(a):
         store = count_kmers_fq_sh_rp(
             path, k=a.k, min_q=a.min_q, source_n=a.source_n, source=source,
             max_reads=a.max_reads, store=store,
-            report_every=a.report_every, exact_ll=exact_ll,
+            report_every=a.report_every, exact_ll=exact_ll, mesh=mesh,
             skip_reads=skip, checkpoint_every=a.checkpoint_every,
             checkpoint_path=(a.out if a.checkpoint_every else None),
             batch_rows=a.batch_rows or None, device=a.device)
@@ -161,7 +183,7 @@ def cmd_count(a):
         # with --checkpoint-every the counting loop already wrote the final
         # atomic checkpoint (incl. the resume cursor) to OUT
         ckpt.save_count_store(store, a.out)
-    print(json.dumps(_count_info(store, a.out)))
+    print(json.dumps(_count_info(store, a.out, mesh)))
 
 
 def cmd_spectrum(a):
@@ -228,10 +250,11 @@ def main(argv=None):
                    help="likelihood filter: exact f64 (bit-parity), fast "
                         "f32, or hybrid (bitwise-exact at about fast speed)")
     s.add_argument("--mesh", type=int, default=None,
-                   help="count over N devices (not ported yet: raises)")
+                   help="count into N key-hash shards (logical shards on "
+                        "the one device) and save the sharded store")
     s.add_argument("--mesh-slices", type=int, default=None,
-                   help="with --mesh: slices of a hierarchical mesh (not "
-                        "ported yet: raises)")
+                   help="with --mesh: lay the N shards out as this many "
+                        "slices (routed flat: the same result)")
     s.add_argument("--resume", default=None,
                    help="existing store to keep accumulating into; if it "
                         "holds a progress cursor (--checkpoint-every), "

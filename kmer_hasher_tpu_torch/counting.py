@@ -20,7 +20,9 @@ parser where it builds (``io/native.py``), else the pure-Python reader, one
 batch ahead in a producer thread; ``_device_batches`` stages the padded
 byte planes through pinned buffers. Which reader ran, and what the reading
 cost, is in ``store.timings`` (``reader``, ``parse_s``, ``wait_s``,
-``copy_s``, ``h2d_bytes``, ``file_reads``). Still to come: ``mesh=``.
+``copy_s``, ``h2d_bytes``, ``file_reads``). ``count_kmers_fq_sh_rp(mesh=)``
+counts into a ``parallel.ShardedCountStore`` on a shard group's logical
+shards (:func:`_count_rp_sharded`), through the same loop.
 """
 from __future__ import annotations
 
@@ -47,8 +49,6 @@ MAX_K = 32
 BATCH_ROWS = 1 << 15  # reads per batch of the file entries
 _SWEEP_EVERY = 64  # batches between exact re-counts of flagged reads
 _NA = -(2 ** 31)  # INT_MIN, R's NA_integer_
-MESH_NOT_PORTED = ("multi-device counting (mesh=; --mesh and --mesh-slices "
-                   "on the command line) is not ported yet")
 
 
 def win_bucket(lmax: int, k: int) -> int:
@@ -393,7 +393,8 @@ def count_batches(store: CountStore, batches: Iterable, k: int,
     """The per-batch loop of :func:`count_kmers_fq_sh_rp`: every
     (seq, qual, lengths, has_qual) batch of ``batches`` — host numpy
     arrays, as the file reader gives them, or tensors already on the
-    store's device — goes through :func:`_fused_rp_batch` into the store;
+    store's device — goes through :func:`_fused_rp_batch` into the store
+    (a ``CountStore``, or a ``ShardedCountStore`` that routes each run);
     in hybrid mode flagged reads are re-counted exactly every
     ``_SWEEP_EVERY`` batches and at the end. Ends with a flush.
 
@@ -586,9 +587,12 @@ def count_kmers_fq_sh_rp(path, k: int, prefix_bits: int = 20,
     reads — together they give mid-file resume (see
     ``utils.checkpoint.load_progress``). ``batch_rows`` is the reads per
     device batch (default: ``KMH_BATCH_ROWS``, else :data:`BATCH_ROWS`).
+
+    ``mesh`` (a ``parallel.make_mesh`` shard group) counts into a
+    ``ShardedCountStore`` on the group's device instead: see
+    :func:`_count_rp_sharded`. A given ``store`` must then be one of its
+    size.
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     if checkpoint_every is not None and checkpoint_path is None:
         raise ValueError("checkpoint_every requires checkpoint_path")
     paths = _normalize_paths(path)
@@ -604,7 +608,7 @@ def count_kmers_fq_sh_rp(path, k: int, prefix_bits: int = 20,
         for p in paths:
             store = count_kmers_fq_sh_rp(
                 p, k, prefix_bits, min_q, n_shards, None, max_mem_gb,
-                source_n, source, store, report_every, exact_ll,
+                source_n, source, store, report_every, exact_ll, mesh=mesh,
                 batch_rows=batch_rows, device=device)
         return store
     if not 1 <= k <= MAX_K:
@@ -614,10 +618,57 @@ def count_kmers_fq_sh_rp(path, k: int, prefix_bits: int = 20,
     if source >= source_n:
         raise ValueError("source_i must be less than source_n")
     _fsm_of(exact_ll)
+    if mesh is not None:
+        return _count_rp_sharded(path, k, min_q, max_reads, source_n, source,
+                                 store, mesh, exact_ll, report_every,
+                                 skip_reads, checkpoint_every,
+                                 checkpoint_path, batch_rows)
     if store is None:
         pb, sb = derive_prefix_suffix_bits(k, prefix_bits)
         store = CountStore(k, counts_n=source_n, prefix_bits=pb,
                            suffix_bits=sb, mode="sh", device=device)
+    return _count_rp_file(path, k, min_q, max_reads, source, store,
+                          exact_ll, report_every, skip_reads,
+                          checkpoint_every, checkpoint_path, batch_rows)
+
+
+def _count_rp_sharded(path, k: int, min_q: int, max_reads: Optional[int],
+                      source_n: int, source: int, store, mesh, exact_ll,
+                      report_every: Optional[int], skip_reads: int = 0,
+                      checkpoint_every: Optional[int] = None,
+                      checkpoint_path: Optional[str] = None,
+                      batch_rows: Optional[int] = None):
+    """``count_kmers_fq_sh_rp(mesh=)`` on one file: a new
+    ``ShardedCountStore`` over ``mesh`` (or the given one, of the group's
+    size) filled by the single store's loop. Each batch's run is routed to
+    its owner shards (``ShardedCountStore.add_run``); the hybrid sweep,
+    ``skip_reads``, ``max_reads``, checkpoints with progress records and
+    ``report_every`` work as for one store. One process reads the file (the
+    JAX package's multi-process routes over byte ranges or whole files
+    need several processes, which the port does not start)."""
+    from .parallel.sharded import ShardedCountStore
+
+    if store is None:
+        store = ShardedCountStore(k, mesh, counts_n=source_n)
+    if not isinstance(store, ShardedCountStore):
+        raise ValueError("mesh= counts into a ShardedCountStore; the given "
+                         "store is not one")
+    if store.n_shards != mesh.size:
+        raise ValueError(f"the store has {store.n_shards} shards; the mesh "
+                         f"has {mesh.size}")
+    return _count_rp_file(path, k, min_q, max_reads, source, store,
+                          exact_ll, report_every, skip_reads,
+                          checkpoint_every, checkpoint_path, batch_rows)
+
+
+def _count_rp_file(path, k: int, min_q: int, max_reads: Optional[int],
+                   source: int, store, exact_ll,
+                   report_every: Optional[int], skip_reads: int,
+                   checkpoint_every: Optional[int],
+                   checkpoint_path: Optional[str],
+                   batch_rows: Optional[int]):
+    """The per-file body of :func:`count_kmers_fq_sh_rp` for either store
+    kind: a ``CountStore`` or a ``ShardedCountStore``."""
     if store.k != k:
         raise ValueError("Incompatible arguments: k does not match the store")
     if source >= store.counts_n:

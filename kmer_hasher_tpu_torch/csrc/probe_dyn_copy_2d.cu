@@ -18,7 +18,8 @@
 // decided once, in a pass before the copy: every step writes its number into
 // owner[row] for the rows of its write window with atomicMax (owner starts at
 // -1), which leaves each row with the last step that writes it at 12 bytes a
-// row. The copy then moves, with 16-byte loads and stores (a row is 512
+// row (probe_owner.cuh, shared with P9). The copy then moves, with 16-byte
+// loads and stores (a row is 512
 // bytes, so every window is aligned), only the rows its step owns. No row of
 // the output is then written twice, and the result is the sequential one
 // whatever the schedule.
@@ -30,28 +31,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "probe_owner.cuh"
+
 namespace {
 
 constexpr int kBlock = 256;
 constexpr int kRowVec = 32;        // uint4 per row of 128 u32
 constexpr int kRowsPerBlock = 128;  // rows of one window a block copies
-
-__device__ __forceinline__ bool inside(long long off, int r, long long rows) {
-  return off >= 0 && off + r <= rows;
-}
-
-// owner[row] = the last step whose write window holds the row.
-__global__ void __launch_bounds__(kBlock)
-dyn_copy_2d_owner_kernel(long long rows, const int* __restrict__ offs,
-                         int steps, int r, int* __restrict__ owner) {
-  const long long i = blockIdx.x * static_cast<long long>(kBlock) + threadIdx.x;
-  if (i >= static_cast<long long>(steps) * r) return;
-  const int t = static_cast<int>(i / r);
-  const long long src = offs[t];
-  const long long dst = offs[steps - 1 - t];
-  if (!inside(src, r, rows) || !inside(dst, r, rows)) return;
-  atomicMax(owner + dst + i % r, t);
-}
 
 __global__ void __launch_bounds__(kBlock)
 dyn_copy_2d_kernel(const uint4* __restrict__ x, long long rows,
@@ -63,7 +49,9 @@ dyn_copy_2d_kernel(const uint4* __restrict__ x, long long rows,
   const int nr = min(kRowsPerBlock, r - r0);
   const long long src = offs[t];
   const long long dst = offs[steps - 1 - t];
-  if (!inside(src, r, rows) || !inside(dst, r, rows)) return;  // whole block
+  if (!kmh_probe::inside(src, r, rows) || !kmh_probe::inside(dst, r, rows)) {
+    return;  // the whole block
+  }
   const long long lo = dst + r0;  // this block's first row of out
   for (int i = threadIdx.x; i < nr; i += kBlock) mine[i] = owner[lo + i] == t;
   __syncthreads();
@@ -91,18 +79,15 @@ extern "C" int kmh_probe_dyn_copy_2d(const void* x, long long rows,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int chunks = (r + kRowsPerBlock - 1) / kRowsPerBlock;
-  const long long marks =
-      (static_cast<long long>(steps) * r + kBlock - 1) / kBlock;
-  if (chunks > 65535 || marks > 0x7fffffffLL) {
+  if (chunks > 65535 || !kmh_probe::owner_grid_fits(steps, r)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (steps == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dyn_copy_2d_owner_kernel<<<static_cast<unsigned int>(marks), kBlock, 0, s>>>(
-      rows, static_cast<const int*>(offs), steps, r, static_cast<int*>(owner));
-  err = cudaGetLastError();
+  err = kmh_probe::launch_owner(rows, static_cast<const int*>(offs), steps, r,
+                                static_cast<int*>(owner), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned int>(steps),
                   static_cast<unsigned int>(chunks));

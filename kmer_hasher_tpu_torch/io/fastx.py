@@ -68,8 +68,9 @@ def _iter_records(path) -> Iterator[Record]:
                 yield (name, b"".join(chunks), None)
         elif first == b"@":
             # multi-line FASTQ like kseq (src/kseq.h:195-218): the sequence
-            # spans lines until the '+' separator; quality bytes accumulate
-            # until they reach the sequence's length
+            # spans lines until the '+' separator; quality lines accumulate
+            # until they reach the sequence's length, and at least one is
+            # read, so an empty read takes its empty quality line
             while True:
                 hdr = buf.readline()
                 if not hdr:
@@ -87,12 +88,14 @@ def _iter_records(path) -> Iterator[Record]:
                     return
                 qchunks: List[bytes] = []
                 qlen = 0
-                while qlen < len(seq):
+                while True:
                     qline = buf.readline()
                     if not qline:
                         break
                     qchunks.append(qline.rstrip(b"\r\n"))
                     qlen += len(qchunks[-1])
+                    if qlen >= len(seq):
+                        break
                 qual = b"".join(qchunks)
                 yield (name, seq, qual if len(qual) == len(seq) else None)
         elif first:
@@ -262,12 +265,14 @@ def _iter_records_range(path, start: int, end: int,
                 return
             qchunks: List[bytes] = []
             qlen = 0
-            while qlen < len(seq):
+            while True:  # at least one quality line, as above
                 ql = f.readline()
                 if not ql:
                     break
                 qchunks.append(ql.rstrip(b"\r\n"))
                 qlen += len(qchunks[-1])
+                if qlen >= len(seq):
+                    break
             qual = b"".join(qchunks)
             yield (name, seq, qual if len(qual) == len(seq) else None)
 

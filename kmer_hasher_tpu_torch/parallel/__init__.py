@@ -1,0 +1,13 @@
+"""Sharded counting (PyTorch port of ``kmer_hasher_tpu/parallel/``).
+
+:mod:`.mesh` gives the shard group that stands where the JAX package has a
+device mesh: D logical shards in one process, on one device. :mod:`.sharded`
+holds ``owner_hash`` and the sharded count store. The sharded index
+(``ShardedKmerIndex``, ``kmer_pairs_sharded``) and several processes over
+``torch.distributed`` (``distributed.py``) are not ported yet.
+"""
+from .mesh import ShardGroup, make_hierarchical_mesh, make_mesh
+from .sharded import ShardedCountStore, owner_hash, owner_of_keys
+
+__all__ = ["ShardGroup", "make_mesh", "make_hierarchical_mesh",
+           "ShardedCountStore", "owner_hash", "owner_of_keys"]

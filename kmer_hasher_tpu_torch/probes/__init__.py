@@ -10,5 +10,8 @@ kmer_hasher_tpu_torch.probes.sort_probes``. :mod:`.cuda_probes_r3` holds the
 third round's (P5 row windows copied in step order, P6 a gather of 2 KB
 records, P7 P2's copies through ``cp.async``, P8 a gather from a table in
 shared memory), :mod:`.sort_probes_r3` their entry point: ``python -m
-kmer_hasher_tpu_torch.probes.sort_probes_r3``.
+kmer_hasher_tpu_torch.probes.sort_probes_r3``. :mod:`.cuda_probes_dma` holds
+the DMA round's (P9 row windows in step order through a ring of bulk
+copies, P10 a per-lane lookup table), :mod:`.dma_probes_r3` their entry
+point: ``python -m kmer_hasher_tpu_torch.probes.dma_probes_r3``.
 """

@@ -60,6 +60,23 @@ def timeit(fn: Callable[[], object], dev: torch.device, iters: int = ITERS
     return statistics.median(runs)
 
 
+def time_once(fn: Callable[[], object], dev: torch.device):
+    """(``fn()``, the seconds of that one call): CUDA events around it on a
+    card, the host clock on the CPU. For plain versions, whose time is no
+    yardstick and can be long: the check's own call is the one timed."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+    with torch.cuda.device(dev):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        out = fn()
+        t1.record()
+        t1.synchronize()
+    return out, t0.elapsed_time(t1) * 1e-3
+
+
 def calls_per_timing(dev: torch.device, iters: int = ITERS) -> int:
     """How many times :func:`timeit` calls its function."""
     return 1 if dev.type != "cuda" else WARMUP + REPEATS * iters

@@ -13,8 +13,15 @@ other. Saving folds the store first, spilled runs included.
 
 :func:`count_store_from_numpy` carries count state across: it takes the
 arrays of either package's file (or of a live JAX store) and gives a store
-on the chosen device. A file of the JAX package's *sharded* store holds the
-disjoint shard tables one after the other; it loads into one store here.
+on the chosen device.
+
+A *sharded* store (``parallel.ShardedCountStore``) is saved as the JAX
+package saves its own: the shard tables one after the other in ``u_hi`` /
+``u_lo`` / ``cnt``, with ``n_shards``, per-shard ``n_unique``, ``capacity``
+and ``total_added``. Such a file, from either package, loads onto a shard
+group of the same size (``load_count_store(path, mesh=)``), or folded into
+one store without ``mesh``. The restored shard tables are installed whole:
+no restored run is cut short.
 """
 from __future__ import annotations
 
@@ -84,10 +91,25 @@ def _raw_from_lanes(hi, lo) -> np.ndarray:
             | np.asarray(lo).astype(np.uint64)).view(np.int64)
 
 
-def save_count_store(store: CountStore, path, progress=None) -> None:
-    """Persist a CountStore. ``progress`` is an optional JSON-serialisable
-    resume cursor (source file + reads consumed) stored in the meta blob —
-    read it back with :func:`load_progress`."""
+def _lanes(keys: torch.Tensor, cnt: torch.Tensor):
+    """A table's sortable keys and int64 count rows as the file's uint32
+    ``u_hi`` / ``u_lo`` lanes and ``cnt``."""
+    raw = enc.sortable_key(keys).cpu().numpy().view(np.uint64)
+    c = cnt.cpu().numpy()
+    if c.size and int(c.max()) > np.iinfo(np.uint32).max:
+        raise OverflowError("a count exceeds the file format's uint32")
+    return ((raw >> np.uint64(32)).astype(np.uint32), raw.astype(np.uint32),
+            c.astype(np.uint32))
+
+
+def save_count_store(store, path, progress=None) -> None:
+    """Persist a CountStore or a ShardedCountStore (the kind is recorded in
+    the meta blob; :func:`load_count_store` restores either). ``progress`` is
+    an optional JSON-serialisable resume cursor (source file + reads
+    consumed) stored in the meta blob — read it back with
+    :func:`load_progress`."""
+    if hasattr(store, "mesh"):
+        return _save_sharded_count_store(store, path, progress)
     store.flush()
     n = store.n_unique
     meta = {
@@ -103,16 +125,59 @@ def save_count_store(store: CountStore, path, progress=None) -> None:
     extra = {}
     if store._admitted is not None:
         extra["admitted"] = store._admitted
-    raw = enc.sortable_key(store.keys).cpu().numpy().view(np.uint64)
-    cnt = store.cnt.cpu().numpy()
-    if n and int(cnt.max()) > np.iinfo(np.uint32).max:
-        raise OverflowError("a count exceeds the file format's uint32")
+    u_hi, u_lo, cnt = _lanes(store.keys, store.cnt)
     np.savez_compressed(
-        path, meta=json.dumps(meta),
-        u_hi=(raw >> np.uint64(32)).astype(np.uint32),
-        u_lo=raw.astype(np.uint32), cnt=cnt.astype(np.uint32),
+        path, meta=json.dumps(meta), u_hi=u_hi, u_lo=u_lo, cnt=cnt,
         total_added=store.total_added, **extra,
     )
+
+
+def _save_sharded_count_store(store, path, progress=None) -> None:
+    n = store.n_unique  # folds every shard first
+    meta = {
+        "magic": _MAGIC, "version": _VERSION, "kind": "sharded_count_store",
+        "k": store.k, "counts_n": store.counts_n, "n_shards": store.n_shards,
+        "capacity": store.capacity, "n_unique": [int(v) for v in n],
+        "progress": progress,
+    }
+    lanes = [_lanes(s.keys, s.cnt) for s in store.shards]
+    np.savez_compressed(
+        path, meta=json.dumps(meta),
+        u_hi=np.concatenate([a[0] for a in lanes]),
+        u_lo=np.concatenate([a[1] for a in lanes]),
+        cnt=np.concatenate([a[2] for a in lanes]).reshape(-1, store.counts_n),
+        total_added=store.total_added,
+    )
+
+
+def _load_sharded_count_store(z, meta, mesh):
+    """A sharded file onto the shard group ``mesh`` (of the size it was
+    saved with): shard d gets rows ``n_unique[:d].sum()`` on."""
+    from ..parallel.sharded import ShardedCountStore
+
+    d_saved = int(meta["n_shards"])
+    if mesh.size != d_saved:
+        raise ValueError(f"store was saved with {d_saved} shards; mesh has "
+                         f"{mesh.size}")
+    counts_n = int(meta["counts_n"])
+    store = ShardedCountStore(int(meta["k"]), mesh, counts_n=counts_n,
+                              capacity=int(meta.get("capacity", 1 << 7)))
+    n = np.asarray(meta["n_unique"], np.int64)
+    offs = np.concatenate([[0], np.cumsum(n)]).astype(np.int64)
+    raw = _raw_from_lanes(z["u_hi"], z["u_lo"])
+    cnt = np.asarray(z["cnt"]).reshape(-1, counts_n).astype(np.int64)
+    if raw.shape[0] != offs[-1] or cnt.shape[0] != offs[-1]:
+        raise ValueError("the shard tables do not match n_unique")
+    dev = store.device
+    store.set_tables([
+        (enc.sortable_key(torch.from_numpy(raw[a:b]).to(dev)),
+         torch.from_numpy(cnt[a:b]).to(dev))
+        for a, b in zip(offs[:-1], offs[1:])])
+    total = np.asarray(z["total_added"], np.int64).reshape(-1)
+    if total.shape[0] != counts_n:
+        raise ValueError("total_added must have counts_n entries")
+    store._total_added = total.copy()
+    return store
 
 
 def count_store_from_numpy(meta: dict, u_hi, u_lo, cnt, total_added,
@@ -160,15 +225,19 @@ def load_progress(path):
     return meta.get("progress")
 
 
-def load_count_store(path, device="cuda") -> CountStore:
-    """Load a saved store onto ``device``: a plain store of either package,
-    or the JAX package's sharded store folded into one."""
+def load_count_store(path, mesh=None, device="cuda"):
+    """Load a saved store of either package onto ``device``. A sharded
+    store restores onto the shard group ``mesh`` (same shard count; the
+    store lives on ``mesh.device``) or, with ``mesh=None``, folds into one
+    CountStore. A plain store ignores ``mesh``."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))
         kind = meta.get("kind")
         if meta.get("magic") != _MAGIC or kind not in (
                 "count_store", "sharded_count_store"):
             raise ValueError(f"{path} is not a kmer_hasher_tpu count store")
+        if kind == "sharded_count_store" and mesh is not None:
+            return _load_sharded_count_store(z, meta, mesh)
         return count_store_from_numpy(
             meta, z["u_hi"], z["u_lo"], z["cnt"], z["total_added"],
             device=device, admitted=z["admitted"] if "admitted" in z else None)

@@ -249,14 +249,19 @@ def test_same_file_and_the_flags_that_are_not_ported(data, tmp_path,
     assert not tcli._same_file("a.fq", "b.fq")
     assert tcli._same_file("missing.fq", str(data / "missing.fq"))
     assert not tcli._same_file("missing.fq", "other.fq")
+    # every flag is ported now: --mesh counts into logical shards, whose
+    # file folds into the store that counting without it saves
+    count = ["count", str(data / "a.fq"), "-k", str(K), "-o"]
+    tcli.main(count + [str(tmp_path / "one.npz")] + CPU)
+    one = tckpt.load_count_store(tmp_path / "one.npz", device="cpu")
     for extra in (["--mesh", "4"], ["--mesh", "4", "--mesh-slices", "2"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tcli.main(["count", str(data / "a.fq"), "-k", str(K), "-o",
-                       str(tmp_path / "s.npz")] + extra + CPU)
-    with pytest.raises(NotImplementedError) as e:
-        tcount.count_kmers_fq_sh_rp(str(data / "a.fq"), k=K, mesh=object(),
-                                    device="cpu")
-    assert str(e.value) == tcount.MESH_NOT_PORTED
+        tcli.main(count + [str(tmp_path / "s.npz")] + extra + CPU)
+        got = tckpt.load_count_store(tmp_path / "s.npz", device="cpu")
+        assert got.counts_dict() == one.counts_dict()
+    with pytest.raises(SystemExit, match="not divisible"):
+        tcli.main(count + [str(tmp_path / "s.npz"), "--mesh", "4",
+                           "--mesh-slices", "3"] + CPU)
+    assert not hasattr(tcount, "MESH_NOT_PORTED")
     (tmp_path / "none.fa").write_text("")
     with pytest.raises(SystemExit, match="no sequences"):
         tcli.main(["index", str(tmp_path / "none.fa"), "-k", "5", "-o",

@@ -11,6 +11,7 @@ import torch
 from kmer_hasher_tpu import api as japi
 from kmer_hasher_tpu.utils import checkpoint as jckpt
 from kmer_hasher_tpu_torch import api, counting
+from kmer_hasher_tpu_torch.parallel import make_mesh
 from kmer_hasher_tpu_torch.utils import checkpoint as tckpt
 
 
@@ -314,9 +315,10 @@ def test_argument_checks(fq):
         api.count_kmers_fq_sh_rp([], k=15, **kw)
     with pytest.raises(ValueError):
         api.count_kmers_fq_sh_rp(fq["a"], k=15, exact_ll="fast", **kw)
-    with pytest.raises(NotImplementedError):
-        api.count_kmers_fq_sh_rp(fq["a"], k=15, mesh=object(), **kw)
     st = api.CountStore(15, device="cpu")
+    with pytest.raises(ValueError):  # mesh= fills a sharded store only
+        api.count_kmers_fq_sh_rp(fq["a"], k=15, store=st,
+                                 mesh=make_mesh(2, device="cpu"))
     with pytest.raises(ValueError):
         api.count_kmers_fq_sh_rp(fq["a"], k=9, store=st)
     assert counting.win_bucket(151, 21) == 140

@@ -1,5 +1,5 @@
-"""The CUDA kernels B1, B2, B3 and P1–P4 against their plain PyTorch versions,
-and the paths through them against the CPU, on the card.
+"""The CUDA kernels B1, B2, B3 and P1–P10 against their plain PyTorch
+versions, and the paths through them against the CPU, on the card.
 
 Needs a CUDA device: marked ``cuda`` and skipped (visibly) without one.
 Imports neither JAX nor kmer_hasher_tpu, so it runs on a machine with
@@ -17,7 +17,8 @@ from kmer_hasher_tpu_torch import counting
 from kmer_hasher_tpu_torch.index import count_store
 from kmer_hasher_tpu_torch.ops import cuda_encode, cuda_merge, cuda_scan
 from kmer_hasher_tpu_torch.ops import merge_sort
-from kmer_hasher_tpu_torch.probes import (cuda_probes, cuda_probes_r3,
+from kmer_hasher_tpu_torch.probes import (cuda_probes, cuda_probes_dma,
+                                          cuda_probes_r3, dma_probes_r3,
                                           sort_probes, sort_probes_r3)
 from kmer_hasher_tpu_torch.qll import Q_TO_LL
 
@@ -668,3 +669,142 @@ def test_cli_count_on_card_matches_cpu(cuda, tmp_path, capsys):
             for dev in ("cuda", "cpu"))
     assert g.n_unique > 0 and torch.equal(g.keys, c.keys)
     assert torch.equal(g.cnt, c.cnt)
+
+
+# -- the DMA probes P9, P10 and the sharded store on the card -------------------
+
+@pytest.mark.parametrize("case", ["tpu 512", "tpu 64", "tpu 8", "static 512",
+                                  "static 8", "static odd", "overlap",
+                                  "outside", "one step", "odd r", "small"])
+def test_p9_kernel_matches_plain(cuda, case):
+    """P9 (and D2, offs=None) equals the sequential plain version bitwise:
+    the TPU probe's permutations at 512, 64 and 8 rows over 2^24 elements,
+    D2 with rows that R divides and does not, overlapping write windows,
+    steps outside x, one step, R off the 32-row chunk, a tiny x."""
+    rng = np.random.default_rng(99)
+    rows = 1 << 17
+    x = dev32(rng.integers(0, 2 ** 32, size=(rows, 128), dtype=np.uint32),
+              cuda)
+    r, offs = {
+        "tpu 512": (512, dma_probes_r3.window_offsets(rows, 512)),
+        "tpu 64": (64, dma_probes_r3.window_offsets(rows, 64)),
+        "tpu 8": (8, dma_probes_r3.window_offsets(rows, 8)),
+        "static 512": (512, None),
+        "static 8": (8, None),
+        "static odd": (777, None),
+        "overlap": (100, rng.integers(0, 3000, size=2000)),
+        "outside": (200, np.array([0, 100, rows - 200, -1, rows - 199,
+                                   2 ** 31 - 1, 300, -2 ** 31, rows, 150])),
+        "one step": (rows, np.array([0])),
+        "odd r": (45, rng.integers(0, 5000, size=3000)),
+        "small": (3, np.array([0, 1, 2, 0])),
+    }[case]
+    if case == "small":
+        x = x[:5]
+    os_ = None if offs is None else torch.from_numpy(
+        np.asarray(offs).astype(np.int32)).to(cuda)
+    before = cuda_probes_dma.pipelined_copy.launches
+    got = cuda_probes_dma.pipelined_copy(x, os_, r)
+    torch.cuda.synchronize()
+    assert cuda_probes_dma.pipelined_copy.launches == before + 1
+    want = cuda_probes_dma.plain_pipelined_copy(x, os_, r)
+    assert torch.equal(got, want)
+    if os_ is not None:
+        assert torch.equal(got, cuda_probes_r3.dyn_copy_2d(x, os_, r))
+
+
+@pytest.mark.parametrize("rows", [1, 7, 512, 8192, 8193, 1 << 16])
+def test_p10_kernel_matches_plain(cuda, rows):
+    rng = np.random.default_rng(1010)
+    tab = dev32(rng.integers(0, 2 ** 32, size=(1024, 128), dtype=np.uint32),
+                cuda)
+    idx = rng.integers(0, 1024, size=(rows, 128)).astype(np.int32)
+    idx.reshape(-1)[:: 89] = rng.integers(-2 ** 31, 2 ** 31,
+                                          size=len(idx.reshape(-1)[:: 89]))
+    idx[0, :4] = (0, 1023, 1024, -1)
+    idx = torch.from_numpy(idx).to(cuda)
+    before = cuda_probes_dma.lane_gather.launches
+    got = cuda_probes_dma.lane_gather(tab, idx)
+    torch.cuda.synchronize()
+    assert cuda_probes_dma.lane_gather.launches == before + 1
+    assert torch.equal(got, cuda_probes_dma.plain_lane_gather(tab, idx))
+    assert got[0, 2].item() == 0 and got[0, 3].item() == 0
+    assert got[0, 1].item() == tab[1023, 1].item()
+
+
+def test_dma_probes_reject_what_they_do_not_take(cuda):
+    x = torch.zeros((64, 128), dtype=torch.int32, device=cuda)
+    offs = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        cuda_probes_dma.pipelined_copy(x, offs.cpu(), 8)
+    with pytest.raises(ValueError):
+        cuda_probes_dma.pipelined_copy(x.t().contiguous().t(), None, 8)
+    with pytest.raises(TypeError):
+        cuda_probes_dma.pipelined_copy(x.float(), None, 8)
+    tab = torch.zeros((1024, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        cuda_probes_dma.lane_gather(tab, x.cpu())
+    with pytest.raises(ValueError):
+        cuda_probes_dma.lane_gather(tab[:, :64].contiguous(), x)
+
+
+def test_dma_probe_entry_point_on_the_card(cuda, capsys):
+    before = (cuda_probes_dma.pipelined_copy.launches,
+              cuda_probes_dma.lane_gather.launches)
+    res = dma_probes_r3.run(20, device=cuda)
+    out = capsys.readouterr().out
+    assert out.count("ok=True") == 8 and "ok=False" not in out
+    assert len(res["D1"]) == 3 and len(res["D2"]) == 1
+    assert cuda_probes_dma.pipelined_copy.launches > before[0]
+    assert cuda_probes_dma.lane_gather.launches > before[1]
+
+
+@pytest.mark.parametrize("spill", [None, "memory", "disk"])
+def test_sharded_store_on_card_matches_cpu(cuda, spill, tmp_path):
+    """Eight logical shards on the card against the same store on the CPU
+    and against one store: tables shard by shard, spectra, total_added;
+    with a spill budget below one run, to memory and to files; and the
+    checkpoint round trip onto 8 shards and into one store."""
+    from kmer_hasher_tpu_torch.parallel import (ShardedCountStore,
+                                                make_mesh)
+    from kmer_hasher_tpu_torch.utils import checkpoint
+
+    rng = np.random.default_rng(808)
+    kw = {} if spill is None else {"spill_bytes": 8192}
+    if spill == "disk":
+        kw["spill_dir"] = str(tmp_path)
+    stores = {dev: ShardedCountStore(21, make_mesh(8, device=dev), **kw)
+              for dev in ("cuda", "cpu")}
+    one = api.CountStore(21, device="cuda")
+    batches = []
+    for _ in range(6):
+        rows, L = 2048, 151
+        seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (rows, L))]
+        qual = rng.integers(66, 74, (rows, L)).astype(np.uint8)
+        batches.append((seq, qual, np.full(rows, L, np.int32),
+                        np.ones(rows, bool)))
+    for dev, st in stores.items():
+        counting.count_batches(st, batches, 21, min_q=20, exact_ll="hybrid")
+    counting.count_batches(one, batches, 21, min_q=20, exact_ll="hybrid")
+    g, c = stores["cuda"], stores["cpu"]
+    for a, b in zip(g.shards, c.shards):
+        assert torch.equal(a.keys.cpu(), b.keys) and torch.equal(
+            a.cnt.cpu(), b.cnt)
+    keys = torch.cat([s.keys for s in g.shards])
+    order = torch.sort(keys)
+    assert torch.equal(order.values, one.keys)
+    assert torch.equal(torch.cat([s.cnt for s in g.shards])[order.indices],
+                       one.cnt)
+    assert one.n_unique > 100_000 and g.timings["routes"] >= 6
+    assert np.array_equal(g.spectrum(100), one.spectrum(100))
+    assert np.array_equal(g.total_added, one.total_added)
+    if spill is not None:
+        assert g.shard_timings()["spills"] > 0
+    p = tmp_path / "sh.npz"
+    checkpoint.save_count_store(g, p)
+    back = checkpoint.load_count_store(p, mesh=make_mesh(8, device="cuda"))
+    assert all(torch.equal(a.keys, b.keys) for a, b in zip(back.shards,
+                                                           g.shards))
+    whole = checkpoint.load_count_store(p, device="cuda")
+    assert torch.equal(whole.keys, one.keys) and torch.equal(whole.cnt,
+                                                             one.cnt)

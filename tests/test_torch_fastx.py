@@ -32,12 +32,19 @@ def write(tmp_path, name, text, gz=False):
     ("a.fa", FASTA), ("b.fq", FASTQ4), ("c.fq", FASTQ_MULTI),
     ("d.fq", CRLF), ("e.fq", "")])
 def test_records_equal_jax_reader(tmp_path, name, text, gz):
+    """The JAX package's pure-Python records, but for one: FASTQ4 ends in an
+    empty read, whose empty quality line that reader takes for a header and
+    makes a record of (C4); the port reads it as the read's quality, as kseq
+    and both packages' native readers do."""
     p = write(tmp_path, name + (".gz" if gz else ""), text, gz)
     want = jfx.read_fastx_py(p)
+    if text == FASTQ4:
+        assert want[-1] == ("", b"", None)
+        want = want[:-1]
     assert tfx.read_fastx(p) == want
     assert tfx.read_fastx(p, max_records=2) == jfx.read_fastx_py(p, 2)
     assert (list(tfx.iter_fastx(p, batch_size=2))
-            == list(jfx.iter_fastx(p, batch_size=2)))
+            == [want[i: i + 2] for i in range(0, len(want), 2)])
     assert (list(tfx.iter_fastx(p, batch_size=2, max_records=3))
             == list(jfx.iter_fastx(p, batch_size=2, max_records=3)))
 

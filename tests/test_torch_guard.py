@@ -118,6 +118,33 @@ with tempfile.TemporaryDirectory() as d:
 for name in ("__main__", "params", "io.native", "probes.sort_probes_r3",
              "probes.cuda_probes_r3"):
     assert "kmer_hasher_tpu_torch." + name in sys.modules, name
+# the DMA probe entry on the CPU; the sharded store through mesh=, its
+# checkpoint both ways, and count --mesh
+from kmer_hasher_tpu_torch.probes import dma_probes_r3
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    dma_probes_r3.main(["16", "--device", "cpu"])
+assert out.getvalue().count("ok=True") == 8, out.getvalue()
+from kmer_hasher_tpu_torch.parallel import make_mesh
+with tempfile.TemporaryDirectory() as d:
+    d = pathlib.Path(d)
+    (d / "r.fq").write_text("".join(
+        f"@r{i}\n{'ACGTTGCAGGACTTGACCAT' * 3}\n+\n{'I' * 60}\n"
+        for i in range(5)))
+    mesh = make_mesh(4, device="cpu")
+    sh = api.count_kmers_fq_sh_rp(str(d / "r.fq"), k=11, exact_ll="hybrid",
+                                  mesh=mesh)
+    checkpoint.save_count_store(sh, d / "sh.npz")
+    back = checkpoint.load_count_store(d / "sh.npz", mesh=mesh)
+    assert (back.n_unique == sh.n_unique).all() and sh.n_unique.sum() > 0
+    one = checkpoint.load_count_store(d / "sh.npz", device="cpu")
+    assert one.n_unique == sh.n_unique.sum()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        cli.main(["count", str(d / "r.fq"), "-k", "11", "--mesh", "4",
+                  "-o", str(d / "c.npz"), "--device", "cpu"])
+    assert '"shards": [' in out.getvalue()
+for name in ("probes.dma_probes_r3", "probes.cuda_probes_dma",
+             "parallel.mesh", "parallel.sharded"):
+    assert "kmer_hasher_tpu_torch." + name in sys.modules, name
 import chip_smoke  # the smoke script's own imports (it runs only as main)
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
@@ -142,7 +169,8 @@ def test_sources_name_no_jax():
     names = {p.name for p in sources}
     assert {"merge_sort.py", "cuda_merge.py", "cuda_probes.py",
             "sort_probes.py", "cuda_probes_r3.py", "sort_probes_r3.py",
-            "__main__.py", "params.py", "native.py"} <= names
+            "__main__.py", "params.py", "native.py", "dma_probes_r3.py",
+            "cuda_probes_dma.py", "mesh.py", "sharded.py"} <= names
     for path in sources + [REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             s = line.strip()
@@ -185,6 +213,21 @@ CALLS = {
     "probes.sort_probes_r3.main": lambda api, ck, p: __import__(
         "kmer_hasher_tpu_torch.probes.sort_probes_r3",
         fromlist=["main"]).main(["17"]),
+    "probes.dma_probes_r3.run": lambda api, ck, p: __import__(
+        "kmer_hasher_tpu_torch.probes.dma_probes_r3",
+        fromlist=["run"]).run(16),
+    "probes.dma_probes_r3.main": lambda api, ck, p: __import__(
+        "kmer_hasher_tpu_torch.probes.dma_probes_r3",
+        fromlist=["main"]).main(["16"]),
+    "parallel.make_mesh": lambda api, ck, p: __import__(
+        "kmer_hasher_tpu_torch.parallel", fromlist=["make_mesh"]).make_mesh(2),
+    "parallel.make_hierarchical_mesh": lambda api, ck, p: __import__(
+        "kmer_hasher_tpu_torch.parallel",
+        fromlist=["make_hierarchical_mesh"]).make_hierarchical_mesh(2, 2),
+    "cli count --mesh": lambda api, ck, p: __import__(
+        "kmer_hasher_tpu_torch.__main__", fromlist=["main"]).main(
+            ["count", p["fq"], "-k", "5", "--mesh", "2", "-o",
+             str(p["store"]) + ".out"]),
     "cli count": lambda api, ck, p: __import__(
         "kmer_hasher_tpu_torch.__main__", fromlist=["main"]).main(
             ["count", p["fq"], "-k", "5", "-o", str(p["store"]) + ".out"]),

@@ -379,3 +379,42 @@ def test_the_producer_thread_overlaps_stops_and_reports():
     it.close()
     assert len(made) <= 5  # at most the queue's depth ahead, then stopped
     assert threading.active_count() == before
+
+
+def test_empty_reads_in_the_middle_and_last(tmp_path, tnative, jnative,
+                                            monkeypatch):
+    """A FASTQ with empty reads, one in the middle and one last: both of the
+    port's readers (the range form too) give the records of the JAX
+    package's native reader, each empty read with its empty quality line
+    and the next header still a header (kseq reads at least one quality
+    line, src/kseq.h:195-218); and both routes of _iter_file_batches give
+    one store. The JAX package's pure-Python reader has the same fault the
+    port's had — it takes the empty quality line for the next record's
+    header — and is left as it is: it is the reference package's."""
+    p = tmp_path / "empty.fq"
+    body = (b"@r1\nACGTACGTACGTAC\n+\nIIIIIIIIIIIIII\n@r2\n\n+\n\n"
+            b"@r3\nTTTTGGGGCCCCAAAATT\n+\nIIIIIIIIIIIIIIIIII\n@r4\n\n+\n\n")
+    p.write_bytes(body)
+    want = [("r1", b"ACGTACGTACGTAC", b"I" * 14), ("r2", b"", b""),
+            ("r3", b"TTTTGGGGCCCCAAAATT", b"I" * 18), ("r4", b"", b"")]
+    assert jnative.read_fastx(str(p)) == want
+    assert tnative.read_fastx(str(p)) == want
+    assert tfx.read_fastx(str(p)) == want
+    assert [r for b in tfx.iter_fastx_range(str(p), 0, len(body))
+            for r in b] == want
+    assert jfx.read_fastx_py(str(p)) != want  # the JAX reader's fault
+    stores = []
+    for env in ({}, {"KMH_NATIVE_IO": "0"}):
+        for key, val in env.items():
+            monkeypatch.setenv(key, val)
+        info = {}
+        batches = list(tcount._iter_file_batches(str(p), None, info=info))
+        assert [b[2].tolist() for b in batches] == [[14, 0, 18, 0]]
+        assert [b[3].tolist() for b in batches] == [[True] * 4]
+        st = tapi.count_kmers_fq_sh_rp(str(p), k=5, min_q=20, device="cpu")
+        assert st.timings["reader"] == info["reader"]
+        stores.append(st)
+    assert info["reader"] == "python"
+    assert stores[0].counts_dict() == stores[1].counts_dict()
+    assert stores[0].n_unique > 0
+    assert np.array_equal(stores[0].total_added, stores[1].total_added)
