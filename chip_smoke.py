@@ -29,7 +29,9 @@ is nonzero:
              way; the DMA probe kernels P9 (row windows copied in step order
              through a ring of shared-memory stages, and D2 with the offsets
              computed) and P10 (a per-lane lookup table) at the TPU probes'
-             shapes, at 2^26 and on edge inputs, over the whole output;
+             shapes, at 2^26 and on edge inputs, over the whole output; P1
+             and P10 also one below, at and above their blocks' tiles and
+             P10's rounds of tasks, and off the 16-byte boundary;
 4. main (index) — make_kmer_hash(k=32) of a 40,000,000-base sequence,
              kmer_pos(2|8), the full pair drain, then a k=21 index and
              seq_kmer_pos with a 1,000,000-base query, with checks;
@@ -104,6 +106,9 @@ is nonzero:
              concatenated keys, the one library call that computes a
              merge), P1-P10 vs plain and vs one library call each where
              one exists,
+             each kernel and library call also by its device time
+             (torch.profiler) and its host time per call; P10, P1 and P6
+             against their library calls in turns;
              build_index_arrays with the flag off and on, the index
              path, one threshold_scan batch, and the counting rates E2E /
              FUSED / FSM with the share of tier merges, of the fold, and
@@ -214,17 +219,55 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds per call, by CUDA events."""
+    """Mean milliseconds per call between CUDA events, after a warm-up:
+    the device's time where it is busy, the host's where a call's host work
+    outlasts its kernels (``device_split`` says which)."""
+    from kmer_hasher_tpu_torch.probes._common import events_ms
+
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    return events_ms(fn, iters)
+
+
+# the probe rows that phase_times_turns times in turns, by (kernel, shape
+# here) -> its shape there: their device and host figures are the turns'
+TURN_SHAPES = {("P1", "ref"): "2^24", ("P1", "full"): "2^26",
+               ("P6", "ref"): "4,096 records",
+               ("P6", "full"): "131,072 records",
+               ("P10", "ref"): "2^20", ("P10", "full"): "2^26"}
+
+
+def device_split(fn, lib=None, iters: int = 20, key=None) -> dict:
+    """Where a call's time goes, beside the events figure of cuda_ms:
+    ``device_ms``, what one call ran on the card by torch.profiler's kernel
+    durations (None where the trace holds no device time), and
+    ``host_us_per_call``, the host's clock around ``iters`` calls with no
+    synchronisation; ``library_device_ms`` of the library call ``lib`` the
+    same way (None where there is none). Nothing for a probe row ``key``
+    of TURN_SHAPES: the turns measure it, and it is profiled once."""
+    from kmer_hasher_tpu_torch.probes._common import device_ms, host_us
+
+    if key in TURN_SHAPES:
+        return {}
+    return {"device_ms": device_ms(fn, iters),
+            "host_us_per_call": host_us(fn, iters),
+            "library_device_ms": None if lib is None else device_ms(
+                lib, iters)}
+
+
+def split_txt(row: dict) -> str:
+    """The device and host figures of a row, for its log line."""
+    if "device_ms" not in row:
+        return "; device and host in the [turns] lines"
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
+
+    txt = (f"; device {ms(row['device_ms'])}, host "
+           f"{row['host_us_per_call']:.1f} us/call")
+    if row["library_device_ms"] is not None:
+        txt += f", library call on the device {ms(row['library_device_ms'])}"
+    return txt
 
 
 def phase_device():
@@ -417,8 +460,11 @@ def phase_times(seq: np.ndarray, card: str):
     k = 32
     ms = cuda_ms(lambda: b1.encode(x, k, SEQ_LEN))
     plain_ms = cuda_ms(lambda: b1.plain(x, k, SEQ_LEN))
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           **device_split(lambda: b1.encode(x, k, SEQ_LEN), iters=10)}
     log(f"[times] B1 encode, k=32, 2^26 bytes: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms (CUDA events, mean of 20) | {card}")
+        f"{plain_ms:.4f} ms (CUDA events, mean of 20){split_txt(row)} | "
+        f"{card}")
 
     # flag off and on in turns (off, on, on, off, ...), after a warm-up
     # of each, so the two are compared within one call on one card
@@ -452,7 +498,7 @@ def phase_times(seq: np.ndarray, card: str):
     full = time.perf_counter() - t0
     log(f"[times] make_kmer_hash(k=32) of {SEQ_LEN:,} bases from host + "
         f"drain of {n:,} pair rows: {full:.3f} s (warm) | {card}")
-    return ms, plain_ms
+    return row
 
 
 def phase_times_merge(cases: dict, card: str):
@@ -475,14 +521,17 @@ def phase_times_merge(cases: dict, card: str):
         n = keys.shape[0]
         moved = n * (8 + 8 + 4 + (0 if pay is None else 4)) + 8 * len(bounds)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "rows": n, "bytes": moved}
+                     "rows": n, "bytes": moved, **device_split(
+                         lambda: b3.merge(keys, pay, bounds),
+                         lambda: torch.sort(keys, stable=stable), iters=5)}
         lens = " + ".join(f"{int(d):,}" for d in np.diff(bounds))
         log(f"[times] B3 merge, {name} ({lens} rows, "
             f"{'implicit' if pay is None else '32-bit'} payload): "
             f"kernel {ms:.4f} ms (CUDA events, mean of 10) = "
             f"{moved / ms / 1e9:.3f} TB/s of {moved / 1e6:.1f} MB, plain "
             f"{plain_ms:.4f} ms (mean of 2), torch.sort of the concatenated "
-            f"keys {lib_ms:.4f} ms (mean of 5) | {card}")
+            f"keys {lib_ms:.4f} ms (mean of 5){split_txt(out[name])} | "
+            f"{card}")
     return out
 
 
@@ -1185,8 +1234,11 @@ def phase_card_vs_cpu_counting(genome: torch.Tensor, batches) -> None:
 
 def device_busy_share(fn):
     """(host seconds, share of them in which the card ran a kernel or a
-    copy) of ``fn``, from torch.profiler; share None if the trace holds no
-    device time."""
+    copy) of ``fn``, from torch.profiler's device activities, each counted
+    once; share None if the trace holds no device time. (Summing
+    ``key_averages()`` would count each kernel that a PyTorch operator
+    launches twice, once under the operator and once as itself.)"""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1196,10 +1248,8 @@ def device_busy_share(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us = 0.0
-    for e in prof.key_averages():
-        busy_us += getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0))
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
     return wall, (busy_us * 1e-6 / wall if busy_us > 0 else None)
 
 
@@ -1211,16 +1261,19 @@ def phase_times_counting(batches, card: str, main_stats: dict):
     k = K_COUNT
     min_ll = float(Q_TO_LL[33 + MIN_Q])
     seq, qual, lengths, has_qual = batches[0]
-    ms, plain_ms = {}, {}
+    b2_rows = {}
     for name, kw in VARIANTS.items():
-        ms[name] = cuda_ms(lambda: b2.scan(seq, qual, lengths, k, min_ll,
-                                           **kw))
-        plain_ms[name] = cuda_ms(
+        ms = cuda_ms(lambda: b2.scan(seq, qual, lengths, k, min_ll, **kw))
+        plain_ms = cuda_ms(
             lambda: b2.plain(seq, qual, lengths, k, min_ll, **kw),
             iters=2, warmup=1)
+        b2_rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                      **device_split(lambda: b2.scan(
+                          seq, qual, lengths, k, min_ll, **kw))}
         log(f"[times] B2 ll_scan {name}, k={k}, [{ROWS} x {READ_LEN}]: "
-            f"kernel {ms[name]:.4f} ms (CUDA events, mean of 20), plain "
-            f"{plain_ms[name]:.4f} ms (mean of 2) | {card}")
+            f"kernel {ms:.4f} ms (CUDA events, mean of 20), plain "
+            f"{plain_ms:.4f} ms (mean of 2){split_txt(b2_rows[name])} | "
+            f"{card}")
 
     from kmer_hasher_tpu_torch.ops import scan_iter
 
@@ -1292,7 +1345,7 @@ def phase_times_counting(batches, card: str, main_stats: dict):
              f"{busy * wall:.3f} s)" for wall, busy in shares)
     log(f"[times] counting loop under torch.profiler, all {len(batches)} "
         f"batches, two passes: device idle share {idle} | {card}")
-    return ms, plain_ms
+    return b2_rows
 
 
 # -- the probes ---------------------------------------------------------------
@@ -1316,6 +1369,14 @@ def probe_cases(gen) -> dict:
     x = rand32(gen, (n_full,))
     cases = {"P1": {"ref": (x[:n_ref],), "full": (x,)}, "P2": {},
              "P3": {}, "P4": {}}
+    # P1's edges: one below, at and above a block's tile on each path (the
+    # 4-byte path's is a quarter), and views 4 and 8 bytes in
+    tile = cp.COPY_TILE
+    for n in (1, 3, 5, tile // 4 - 1, tile // 4 + 1, tile - 1, tile,
+              tile + 1, 1000 * tile + 2, (1 << 20) + 3):
+        for skew in (0, 1, 2):
+            cases["P1"][f"n={n:,}, {4 * skew} bytes in"] = (
+                x[skew: skew + n],)
     for g in sp.GRANULES:
         offs = sp.reference_offsets(n_ref, g)
         cases["P2"][f"ref, granule {g}"] = (
@@ -1605,6 +1666,8 @@ def phase_times_probes_r3(cases: dict, card: str) -> dict:
             lib = library(name, args)
             lib_ms = None if lib is None else cuda_ms(
                 lib, iters=10 if big else 100)
+            split = device_split(lambda: fn(*args), lib,
+                                 iters=10 if big else 50, key=(name, shape))
             if name == "P5":
                 x, offs, r = args
                 src = sp3.sequential_source_rows(
@@ -1622,7 +1685,7 @@ def phase_times_probes_r3(cases: dict, card: str) -> dict:
             b_ms, b_by = bound(moved, 0)
             out[name][shape] = {"ms": ms, "plain_ms": plain_ms,
                                 "library_ms": lib_ms, "bytes": moved,
-                                "bound_ms": b_ms, "bound_by": b_by}
+                                "bound_ms": b_ms, "bound_by": b_by, **split}
             extra = ""
             if name == "P6":
                 extra = (f" = {args[1].numel() / ms / 1e3:.1f} M "
@@ -1634,7 +1697,7 @@ def phase_times_probes_r3(cases: dict, card: str) -> dict:
             log(f"[times] {name}, {shape}: kernel {ms:.4f} ms = "
                 f"{moved / ms / 1e9:.3f} TB/s of {moved / 1e6:.3f} MB"
                 f"{extra} (bound {b_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-                f"{lib_txt} (CUDA events) | {card}")
+                f"{lib_txt} (CUDA events){split_txt(split)} | {card}")
     return out
 
 
@@ -2130,11 +2193,15 @@ def phase_times_probes(cases: dict, card: str) -> dict:
     for name, (fn, plain) in probe_kernels().items():
         out[name] = {}
         for shape, args in cases[name].items():
+            if not shape.startswith(("ref", "full")):
+                continue
             big = args[0].numel() > 1 << 20
             ms = cuda_ms(lambda: fn(*args), iters=20 if big else 200)
             plain_ms = cuda_ms(lambda: plain(*args), iters=2, warmup=1)
-            lib_ms = cuda_ms(library(name, shape, args),
-                             iters=10 if big else 100)
+            lib = library(name, shape, args)
+            lib_ms = cuda_ms(lib, iters=10 if big else 100)
+            split = device_split(lambda: fn(*args), lib,
+                                 iters=10 if big else 50, key=(name, shape))
             if name == "P2":
                 tiles = args[1].numel()
                 moved = 2 * 4 * tiles * cp.CH + 4 * tiles
@@ -2145,11 +2212,12 @@ def phase_times_probes(cases: dict, card: str) -> dict:
             b_ms, b_by = bound(moved, 0)
             out[name][shape] = {"ms": ms, "plain_ms": plain_ms,
                                 "library_ms": lib_ms, "bytes": moved,
-                                "bound_ms": b_ms, "bound_by": b_by}
+                                "bound_ms": b_ms, "bound_by": b_by, **split}
             log(f"[times] {name}, {shape}: kernel {ms:.4f} ms = "
                 f"{moved / ms / 1e9:.3f} TB/s of {moved / 1e6:.3f} MB "
                 f"(bound {b_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
-                f"call {lib_ms:.4f} ms (CUDA events) | {card}")
+                f"call {lib_ms:.4f} ms (CUDA events){split_txt(split)} | "
+                f"{card}")
     return out
 
 
@@ -2200,6 +2268,23 @@ def probe_dma_cases(gen) -> dict:
     idx[0, :6] = torch.tensor([0, 1023, 1024, -1, 2 ** 31 - 1, -2 ** 31],
                               dtype=torch.int32)
     cases["P10"]["indices outside the table"] = (tab, idx)
+    # P10's edges: rows one below, at and above a task, a round of tasks
+    # over the row groups (one block an SM, four column slabs) and several,
+    # indices outside the table in the last row too; a table that starts
+    # 4 bytes into a tensor
+    task = cpd.LANE_TASK
+    rnd = task * (torch.cuda.get_device_properties(0).multi_processor_count
+                  // 4)
+    for rows in (1, 7, task - 1, task + 1, rnd - 1, rnd, rnd + 1,
+                 8193, 1 << 16):
+        idx = torch.randint(-3, cpd.TABLE_ROWS + 3, (rows, cp3.COLS),
+                            generator=gen, device="cuda", dtype=torch.int32)
+        idx[-1, -4:] = torch.tensor([-2 ** 31, 2 ** 31 - 1, 1024, 1023],
+                                    dtype=torch.int32)
+        cases["P10"][f"rows={rows:,}"] = (tab, idx)
+    flat = rand32(gen, (cpd.TABLE_ROWS * cp3.COLS + 1,))
+    cases["P10"]["a table 4 bytes in, rows=8,193"] = (
+        flat[1:].view(cpd.TABLE_ROWS, cp3.COLS), idx[:8193])
     return cases
 
 
@@ -2326,8 +2411,12 @@ def phase_times_probes_dma(cases: dict, card: str) -> dict:
                 args[1].numel() > 1 << 25)
             ms = cuda_ms(lambda: fn(*args), iters=20 if big else 200)
             plain_ms = cuda_ms(lambda: plain(*args), iters=1, warmup=1)
-            lib_ms = cuda_ms(library(name, args), iters=10 if big else 100)
-            row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms}
+            lib = library(name, args)
+            lib_ms = cuda_ms(lib, iters=10 if big else 100)
+            row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   **device_split(lambda: fn(*args), lib,
+                                  iters=10 if big else 50,
+                                  key=(name, shape))}
             if name == "P9":
                 x, offs, r = args
                 offs5 = (cpd.static_offsets(x.shape[0], r, x.device)
@@ -2356,8 +2445,34 @@ def phase_times_probes_dma(cases: dict, card: str) -> dict:
             log(f"[times] {name}, {shape}: kernel {ms:.4f} ms = "
                 f"{moved / ms / 1e9:.3f} TB/s of {moved / 1e6:.3f} MB "
                 f"(bound {b_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
-                f"call {lib_ms:.4f} ms{extra} (CUDA events) | {card}")
+                f"call {lib_ms:.4f} ms{extra} (CUDA events)"
+                f"{split_txt(row)} | {card}")
     return out
+
+
+def phase_times_turns(p_times: dict) -> list:
+    """P10, P1 and P6 against their library calls in turns (kernel, call,
+    call, kernel; 5 pairs by CUDA events, 3 by device time; medians) at
+    the TPU probes' and the full shapes, P10 also over one row: the verdict
+    of "slower than a PyTorch call" rests on these device times. Their
+    device and host figures go into the rows of ``p_times`` that
+    TURN_SHAPES names. The rows, trimmed for the kernels' JSON line."""
+    from kmer_hasher_tpu_torch.probes import turns
+
+    keep = ("ms", "device_ms", "host_us_per_call")
+    rows = [{"probe": r["probe"], "shape": r["shape"],
+             "library_call": r["library_call"],
+             **{who: {k: r[who][k] for k in keep}
+                for who in ("kernel", "library")}}
+            for r in turns.run()]
+    there = {(r["probe"], r["shape"]): r for r in rows}
+    for (name, shape), theirs in TURN_SHAPES.items():
+        r = there[(name, theirs)]
+        p_times[name][shape].update(
+            device_ms=r["kernel"]["device_ms"],
+            host_us_per_call=r["kernel"]["host_us_per_call"],
+            library_device_ms=r["library"]["device_ms"])
+    return rows
 
 
 # -- the sharded count store ----------------------------------------------------
@@ -2675,7 +2790,7 @@ def main() -> None:
     swept = phase_hybrid_full_width(rng)
     phase_card_vs_cpu(seq)
     phase_card_vs_cpu_counting(genome, batches)
-    b1_ms, b1_plain = phase_times(seq, card)
+    b1_row = phase_times(seq, card)
     b3_times = phase_times_merge(cases, card)
     log(f"[times] merge_runs of two runs at the store shape peaks at "
         f"{merge_peak_factor(cases['store']):.2f} x its inputs' bytes in "
@@ -2687,7 +2802,8 @@ def main() -> None:
     del r3_cases
     p_times.update(phase_times_probes_dma(dma_cases, card))
     del dma_cases
-    b2_ms, b2_plain = phase_times_counting(batches, card, stats)
+    turns = phase_times_turns(p_times)
+    b2_rows = phase_times_counting(batches, card, stats)
     phase_times_sharded(batches, card, sh_stats["wall"])
     # least time for the same work: every input byte read once, every output
     # byte written once; B1 does ~4 integer ops per base of each window, B2
@@ -2710,11 +2826,14 @@ def main() -> None:
         "launches": by_path[0]["index"],
         "launches_by_path": by_path[0],
         "max_abs_err": worst_b1,
-        "ms": b1_ms,
-        "plain_ms": b1_plain,
+        "ms": b1_row["ms"],
+        "plain_ms": b1_row["plain_ms"],
         "bound_ms": b1_bound[0],
         "bound_by": b1_bound[1],
         "library_ms": None,
+        "shape": "2^26 bytes, k=32",
+        "by_shape": {"2^26 bytes, k=32": dict(
+            b1_row, bound_ms=b1_bound[0], bound_by=b1_bound[1])},
     }, {
         "name": "B2 ll_scan",
         "route": "cuda",
@@ -2724,14 +2843,15 @@ def main() -> None:
         "launches_by_path": by_path[1],
         "f64_rescans_at_full_width": swept,
         "max_abs_err": worst_b2,
-        "ms": b2_ms[main_variant],
-        "plain_ms": b2_plain[main_variant],
+        "ms": b2_rows[main_variant]["ms"],
+        "plain_ms": b2_rows[main_variant]["plain_ms"],
         "bound_ms": b2_bound[0],
         "bound_by": b2_bound[1],
         "library_ms": None,
         "instantiation": main_variant,
-        "ms_by_instantiation": b2_ms,
-        "plain_ms_by_instantiation": b2_plain,
+        "shape": main_variant,
+        "by_shape": {name: dict(t, bound_ms=b2_bound[0], bound_by=b2_bound[1])
+                     for name, t in b2_rows.items()},
     }, {
         "name": "B3 merge_path",
         "route": "cuda",
@@ -2804,7 +2924,7 @@ def main() -> None:
              "full, R=512"),
             ("P10", "P10 probe_lane_gather", "probe_lane_gather.cu", 117,
              "full"),
-        ), start=11)], "file_entry": cli_stats}))
+        ), start=11)], "turns": turns, "file_entry": cli_stats}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -14,4 +14,8 @@ kmer_hasher_tpu_torch.probes.sort_probes_r3``. :mod:`.cuda_probes_dma` holds
 the DMA round's (P9 row windows in step order through a ring of bulk
 copies, P10 a per-lane lookup table), :mod:`.dma_probes_r3` their entry
 point: ``python -m kmer_hasher_tpu_torch.probes.dma_probes_r3``.
+
+:mod:`.turns` times P1, P10 and P6 against their library calls in turns,
+by device time and host time as well as by CUDA events (``python -m
+kmer_hasher_tpu_torch.probes.turns``).
 """

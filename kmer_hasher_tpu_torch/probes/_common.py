@@ -1,4 +1,4 @@
-"""What every probe shares: a timer and the name of what was timed.
+"""What every probe shares: timers and the name of what was timed.
 
 On a card a probe is timed with CUDA events around a run of calls after a
 warm-up, and the median over a few such runs is kept. A call is the
@@ -8,13 +8,19 @@ enqueue and the copy as well.
 Without a card (``--device cpu``, the tests) the same function is timed on
 the host's clock, once, and the line says so: such a number says nothing
 about a device.
+
+To tell the two apart, :func:`device_ms` sums what a call ran on the card
+(``torch.profiler``'s kernel, copy and fill durations) and :func:`host_us`
+clocks the host's work per call without a synchronisation;
+:func:`in_turns` times several functions in turns by both, so that two
+versions are compared within one process on one card.
 """
 from __future__ import annotations
 
 import statistics
 import subprocess
 import time
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -80,3 +86,102 @@ def time_once(fn: Callable[[], object], dev: torch.device):
 def calls_per_timing(dev: torch.device, iters: int = ITERS) -> int:
     """How many times :func:`timeit` calls its function."""
     return 1 if dev.type != "cuda" else WARMUP + REPEATS * iters
+
+
+def events_ms(fn: Callable[[], object], iters: int) -> float:
+    """Milliseconds per call of ``fn`` between two CUDA events around
+    ``iters`` calls back to back: the device's time where it is busy, the
+    host's where a call's host work outlasts its kernels."""
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def device_profile(fn: Callable[[], object], iters: int) -> dict:
+    """What ``iters`` calls of ``fn`` put on the card, from the kernel,
+    copy and fill durations that ``torch.profiler`` records: name ->
+    (activities per call, milliseconds per call). Empty where the trace
+    holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return {name: (n / iters, us * 1e-3 / iters)
+            for name, (n, us) in by_name.items()}
+
+
+def device_ms(fn: Callable[[], object], iters: int) -> Optional[float]:
+    """Device milliseconds per call of ``fn``: the summed durations of
+    everything its calls ran on the card (:func:`device_profile`), whatever
+    the host took to launch them; None where the trace holds no device
+    time."""
+    return _total_ms(device_profile(fn, iters))
+
+
+def _total_ms(prof: dict) -> Optional[float]:
+    """The summed milliseconds of a :func:`device_profile`, or None."""
+    return sum(ms for _, ms in prof.values()) if prof else None
+
+
+def host_us(fn: Callable[[], object], iters: int) -> float:
+    """Host microseconds per call of ``fn``: the host's clock around
+    ``min(iters, 20)`` calls with no synchronisation, so the wrapper's own
+    work and its launches, not the kernels; the median of REPEATS runs.
+    (Few calls, so that the launch queue never fills and makes the host
+    wait for the card.)"""
+    n = min(iters, 20)
+    runs = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        runs.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def in_turns(fns: Dict[str, Callable[[], object]], iters: int,
+             pairs: int = 5, device_pairs: int = 3) -> dict:
+    """The functions of ``fns`` timed in turns on the card, after a warm-up
+    of each: the order forward then backward (a b b a for two), ``pairs``
+    times by CUDA events (:func:`events_ms` over ``iters`` calls) and
+    ``device_pairs`` times by device time (:func:`device_profile`). Returns
+    name -> {"ms", "device_ms": medians, "ms_turns", "device_ms_turns":
+    every turn, "host_us_per_call", "activities": what the calls of the last
+    device turn ran on the card}."""
+    names = list(fns)
+    for name in names:
+        for _ in range(WARMUP):
+            fns[name]()
+    order = names + names[::-1]
+    out = {n: {"ms_turns": [], "device_ms_turns": []} for n in names}
+    for _ in range(pairs):
+        for n in order:
+            out[n]["ms_turns"].append(events_ms(fns[n], iters))
+    for _ in range(device_pairs):
+        for n in order:
+            prof = out[n]["activities"] = device_profile(fns[n], iters)
+            out[n]["device_ms_turns"].append(_total_ms(prof))
+    for n in names:
+        row = out[n]
+        row["ms"] = statistics.median(row["ms_turns"])
+        dev = [t for t in row["device_ms_turns"] if t is not None]
+        row["device_ms"] = statistics.median(dev) if dev else None
+        row["host_us_per_call"] = host_us(fns[n], iters)
+    return out

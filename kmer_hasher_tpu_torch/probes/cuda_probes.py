@@ -36,6 +36,9 @@ from ..ops import _build
 
 CH = 1 << 13  # elements per tile of P2
 MAX_TILE = 1 << 13  # most elements of one P3/P4 tile (32 KB of shared memory)
+# elements one block of P1 copies: 1,024 threads x 16 bytes (x 4 bytes
+# where x or out is not 16-byte aligned: COPY_TILE / 4)
+COPY_TILE = 1 << 12
 
 
 def plain_copy(x: torch.Tensor) -> torch.Tensor:
@@ -70,14 +73,20 @@ def plain_roll_flat(x: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     return _plain_roll(x, shifts, flat=True)
 
 
+_ENTRIES: dict = {}  # C entry name -> (library, typed function)
+
+
 def _entry(name: str, argtypes: list):
-    """The library and its typed C entry ``name``."""
-    lib = _build.load()
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
+    """The library and its C entry ``name``, typed on first use and kept:
+    a launch takes no lock and looks nothing up."""
+    got = _ENTRIES.get(name)
+    if got is None:
+        lib = _build.load()
+        fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib, fn
+        got = _ENTRIES[name] = (lib, fn)
+    return got
 
 
 def _check(t: torch.Tensor, what: str, dev: torch.device) -> None:
@@ -92,13 +101,24 @@ def _check(t: torch.Tensor, what: str, dev: torch.device) -> None:
 
 def _launch(wrapper, name: str, argtypes: list, dev: torch.device, *args
             ) -> None:
-    """Call C entry ``name`` with ``args``, the device and the current
-    stream; raise on a CUDA error, else count one launch of ``wrapper``."""
+    """Call C entry ``name`` with ``args``, the device's index and its
+    current stream; raise on a CUDA error, else count one launch of
+    ``wrapper``. The C entry makes ``dev`` the thread's device; where
+    another one is current, it is made current around the call and the
+    other restored after, as PyTorch's device guard does. The stream is
+    asked for on every call, so that a ``torch.cuda.stream`` context
+    holds."""
     lib, fn = _entry(name, argtypes)
-    with torch.cuda.device(dev):
-        err = fn(*args, torch.cuda.current_device(),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, f"{name} launch")
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    stream = torch.cuda.current_stream(index).cuda_stream
+    if current == index:
+        err = fn(*args, index, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, index, stream)
+    if err:
+        _build.check(lib, err, f"{name} launch")
     wrapper.launches += 1
 
 
@@ -109,13 +129,15 @@ def copy(x: torch.Tensor) -> torch.Tensor:
     """P1: a copy of ``x`` (int32, any shape, contiguous)."""
     if x.device.type == "cpu":
         return plain_copy(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"P1 runs on CPU or CUDA tensors, not {x.device.type}")
-    _check(x, "x", x.device)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"P1 runs on CPU or CUDA tensors, not {dev.type}")
+    _check(x, "x", dev)
     out = torch.empty_like(x)
-    if x.numel():
-        _launch(copy, "kmh_probe_copy", [_P, _P, _LL, _I, _P], x.device,
-                x.data_ptr(), out.data_ptr(), x.numel())
+    n = x.numel()
+    if n:
+        _launch(copy, "kmh_probe_copy", [_P, _P, _LL, _I, _P], dev,
+                x.data_ptr(), out.data_ptr(), n)
     return out
 
 

@@ -39,6 +39,7 @@ from .cuda_probes import _I, _LL, _P, _check, _launch
 from .cuda_probes_r3 import COLS, _rows_and_offsets, plain_dyn_copy_2d
 
 TABLE_ROWS = 1 << 10  # rows of P10's table: [1024, 128], 512 KB
+LANE_TASK = 16  # rows of one task of a warp of P10
 
 
 def static_offsets(rows: int, r: int, device) -> torch.Tensor:

@@ -362,11 +362,20 @@ def rand32(rng, shape):
         0, 2 ** 32, size=shape, dtype=np.uint32).view(np.int32))
 
 
-@pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 3, 5, 1])
-@pytest.mark.parametrize("skew", [0, 1])
+# a block of P1 copies _T elements on the 16-byte path, _T / 4 on the
+# 4-byte path
+_T = cuda_probes.COPY_TILE
+
+
+@pytest.mark.parametrize("n", [
+    1 << 20, (1 << 20) + 3, 5, 1, 3, 4, _T // 4 - 1, _T // 4, _T // 4 + 1,
+    _T - 1, _T, _T + 1, 2 * _T + 5, 1000 * _T - 1, 1000 * _T + 2,
+    (1 << 24) + 7])
+@pytest.mark.parametrize("skew", [0, 1, 2])
 def test_p1_kernel_matches_plain(cuda, n, skew):
-    """16-byte path, the n % 4 tail, and a view that starts 4 bytes into a
-    tensor (no 16-byte alignment: the 4-byte path)."""
+    """16-byte path, the n % 4 tail, and views that start 4 and 8 bytes into
+    a tensor (no 16-byte alignment: the 4-byte path); n one below, at and
+    above a block's tile of each path, and many tiles."""
     x = rand32(np.random.default_rng(n), n + skew).to(cuda)[skew:]
     before = cuda_probes.copy.launches
     got = cuda_probes.copy(x)
@@ -713,15 +722,27 @@ def test_p9_kernel_matches_plain(cuda, case):
         assert torch.equal(got, cuda_probes_r3.dyn_copy_2d(x, os_, r))
 
 
-@pytest.mark.parametrize("rows", [1, 7, 512, 8192, 8193, 1 << 16])
-def test_p10_kernel_matches_plain(cuda, rows):
+# P10 deals tasks of LANE_TASK rows round robin over 33 row groups on an
+# H100 (132 SMs, one block each, 4 column slabs)
+_R, _GR = cuda_probes_dma.LANE_TASK, 132 // 4
+
+
+@pytest.mark.parametrize("rows", [
+    1, 7, 512, 8192, 8193, 1 << 16, _R - 1, _R, _R + 1, _GR * _R - 1,
+    _GR * _R, _GR * _R + 1, 2 * _GR * _R + 3, 32 * _GR * _R + 1])
+@pytest.mark.parametrize("skew", [0, 1])
+def test_p10_kernel_matches_plain(cuda, rows, skew):
+    """Rows one below, at and above a task, one round of tasks over the
+    row groups and several; indices outside the table at both ends; with
+    skew the table starts 4 bytes into a tensor (no bulk copies)."""
     rng = np.random.default_rng(1010)
-    tab = dev32(rng.integers(0, 2 ** 32, size=(1024, 128), dtype=np.uint32),
-                cuda)
+    tab = dev32(rng.integers(0, 2 ** 32, size=1024 * 128 + skew,
+                             dtype=np.uint32), cuda)[skew:].reshape(1024, 128)
     idx = rng.integers(0, 1024, size=(rows, 128)).astype(np.int32)
     idx.reshape(-1)[:: 89] = rng.integers(-2 ** 31, 2 ** 31,
                                           size=len(idx.reshape(-1)[:: 89]))
     idx[0, :4] = (0, 1023, 1024, -1)
+    idx[-1, -4:] = (-2 ** 31, 2 ** 31 - 1, 1024, 1023)
     idx = torch.from_numpy(idx).to(cuda)
     before = cuda_probes_dma.lane_gather.launches
     got = cuda_probes_dma.lane_gather(tab, idx)

@@ -202,3 +202,13 @@ def test_a_failing_probe_raises(monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="probe failed: D3"):
         dma_probes_r3.run(16, device="cpu")
     assert "ok=False" in capsys.readouterr().out
+
+
+def test_the_turns_need_a_card():
+    """The turns time the card: without one they raise and fall back to
+    nothing, the host's clock included."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py runs the turns")
+    from kmer_hasher_tpu_torch.probes import turns
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        turns.run()
