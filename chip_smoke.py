@@ -14,9 +14,14 @@ is nonzero:
 1. device  — needs torch.cuda; prints the card and its power limit;
 2. build   — compiles kmer_hasher_tpu_torch/csrc/*.cu with nvcc (sm_90a);
 3. kernels — B1 (encode), B2 (quality-likelihood FSM, three
-             instantiations) and B3 (merge path: sort-round shapes at 2^26,
+             instantiations; also on the edges of its warp tiling: rows no
+             multiple of 32, rows shorter than, equal to and a multiple of
+             its 16-position chunk, rows over one 512-position window, k = 1
+             and k = 32) and B3 (merge path: sort-round shapes at 2^26,
              the five-key adversarial input, the count store's two-run
-             shape with the implicit payload, edge shapes) and the probe
+             shape with the implicit payload, edge shapes: pairs of the tile
+             +-1, one key across tiles, one side empty across tiles, and
+             payloads >= 2^31 at the last sort round) and the probe
              kernels P1-P4 (copy, copy from device-known offsets at granules
              1,024 / 8 / 1, rotation by device-known shifts; at the TPU
              probes' shapes and at 2^26 elements) against their plain
@@ -54,7 +59,7 @@ is nonzero:
              exact. Kernel launches are counted per path (index, merge-sort
              index, counting, file, threshold, probes, spill, probes_r3,
              cli, probes_dma, sharded), set to 0 just before each and read
-             just after;
+             just after, and with them the rows B3 merged;
    main (sharded) — the counting cell's reads through
              ShardedCountStore(21, make_mesh(8)) by the same loop, then
              spectrum and depth: the union of the 8 shard tables equals the
@@ -158,6 +163,13 @@ FIVE_N = 1 << 22
 STORE_A, STORE_B = 7_000_000, 4_000_000
 SIGN = -(2 ** 63)
 KS_SCAN = (5, 16, 17, 21, 31, 32)
+# B2's edges (rows, L, k): rows no multiple of the warp's 32, rows shorter
+# than a 16-position chunk, one position, a multiple of the chunk, rows over
+# one 512-position window; k = 1 and k = 32
+B2_EDGES = ((1, READ_LEN, K_COUNT), (33, READ_LEN, K_COUNT),
+            (ROWS + 1, READ_LEN, K_COUNT), (64, 8, 5), (64, 1, 1),
+            (64, 16, 9), (64, 32, 32), (96, 160, 21), (40, 600, 21),
+            (35, 1100, 31), (256, READ_LEN, 1), (256, READ_LEN, 32))
 VARIANTS = {  # B2's three instantiations, as cuda_scan.scan selects them
     "f32": dict(precision="fast"),
     "f32+flags": dict(precision="fast", return_flags=True,
@@ -501,6 +513,35 @@ def phase_times(seq: np.ndarray, card: str):
     return row
 
 
+def host_steps(fn, calls: int = 20) -> dict:
+    """Where the host's time of a call of ``fn`` goes, in µs a call:
+    torch.profiler's self CPU time of each PyTorch operator and CUDA
+    runtime call over ``calls`` calls with no synchronisation (those of at
+    least 1 µs, largest first), and under "outside them" the rest of the
+    host's clock around the calls: Python, numpy, ctypes, and the
+    profiler's own cost but for its trace buffer's set-up, which the first
+    runtime call inside the loop pays and which is left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    steps = {e.key: e.self_cpu_time_total / calls
+             for e in prof.key_averages()
+             if e.key not in ("cudaDeviceSynchronize", "cudaStreamSynchronize")}
+    own = steps.pop("Activity Buffer Request", 0.0)
+    out = {k: v for k, v in sorted(steps.items(), key=lambda kv: -kv[1])
+           if v >= 1.0}
+    out["outside them"] = wall * 1e6 / calls - own - sum(steps.values())
+    return out
+
+
 def phase_times_merge(cases: dict, card: str):
     """B3 per launch at the last sort round and at the store's shape,
     beside its plain version and the one library call that computes a
@@ -523,7 +564,9 @@ def phase_times_merge(cases: dict, card: str):
         out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                      "rows": n, "bytes": moved, **device_split(
                          lambda: b3.merge(keys, pay, bounds),
-                         lambda: torch.sort(keys, stable=stable), iters=5)}
+                         lambda: torch.sort(keys, stable=stable), iters=5),
+                     "host_steps_us": host_steps(
+                         lambda: b3.merge(keys, pay, bounds))}
         lens = " + ".join(f"{int(d):,}" for d in np.diff(bounds))
         log(f"[times] B3 merge, {name} ({lens} rows, "
             f"{'implicit' if pay is None else '32-bit'} payload): "
@@ -532,16 +575,20 @@ def phase_times_merge(cases: dict, card: str):
             f"{plain_ms:.4f} ms (mean of 2), torch.sort of the concatenated "
             f"keys {lib_ms:.4f} ms (mean of 5){split_txt(out[name])} | "
             f"{card}")
+        log(f"[times] B3 wrapper's host steps, {name}, us a call under "
+            f"torch.profiler (20 calls): " + "; ".join(
+                f"{k} {v:.1f}" for k, v in out[name]["host_steps_us"].items())
+            + f" | {card}")
     return out
 
 
 # -- the counting path ------------------------------------------------------
 
-def scan_batch(rng, k: int, rows: int = 2048, quals: str = "binned"):
-    """A ragged [rows, READ_LEN] read batch on the card: mixed-case bases
-    with N; lengths 0, k, k+1, full and random; binned, stress or uniform
+def scan_batch(rng, k: int, rows: int = 2048, quals: str = "binned",
+               L: int = READ_LEN):
+    """A ragged [rows, L] read batch on the card: mixed-case bases with N;
+    lengths 0, k, k+1, full and random; binned, stress or uniform
     qualities."""
-    L = READ_LEN
     seq = rng.choice(np.frombuffer(b"ACGTacgtN", np.uint8), size=(rows, L))
     if quals == "binned":
         q = rng.choice(np.frombuffer(QUAL_BINS, np.uint8), size=(rows, L),
@@ -553,7 +600,7 @@ def scan_batch(rng, k: int, rows: int = 2048, quals: str = "binned"):
     else:
         q = (33 + rng.integers(0, 42, size=(rows, L))).astype(np.uint8)
     lengths = rng.integers(0, L + 1, size=rows).astype(np.int32)
-    lengths[:4] = (0, k, k + 1, L)
+    lengths[:4] = (0, k, k + 1, L)[:rows]
     return tuple(torch.from_numpy(a).cuda() for a in (seq, q, lengths))
 
 
@@ -594,26 +641,30 @@ def phase_kernels_scan(rng) -> float:
     # inside the tracked error band and reads flag: low random qualities
     # (large |ll|, a wide band) and one constant quality (every window sum
     # sits on the threshold)
-    k, B, L = 9, 2048, 40
-    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=(B, L))]
-    lens = np.full(B, L, np.int32)
-    swept = 0
-    for qual in ((33 + rng.integers(2, 11, size=(B, L))).astype(np.uint8),
-                 np.full((B, L), 33 + 40, np.uint8)):
-        sums = np.sort(np.lib.stride_tricks.sliding_window_view(
-            ll_table_f32()[qual].astype(np.float64), k + 1, axis=1
-        ).sum(-1).ravel())
-        args = tuple(torch.from_numpy(a).cuda() for a in (seq, qual, lens))
-        for anchor in (sums[sums.size // 6], sums[sums.size // 2]):
-            for off in (-3e-6, -2.5e-6, 0.0, 1.5e-6, 2e-6, 2.5e-6, 3e-6):
-                got = compare(args, k, float(anchor + off),
-                              dict(precision="fast", return_flags=True),
-                              f"threshold sweep, {anchor} + {off}")
-                swept += int(got[3].sum())
+    def sweep(rng, B, L=40, k=9):
+        seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=(B, L))]
+        lens = np.full(B, L, np.int32)
+        flagged = 0
+        for qual in ((33 + rng.integers(2, 11, size=(B, L))).astype(np.uint8),
+                     np.full((B, L), 33 + 40, np.uint8)):
+            sums = np.sort(np.lib.stride_tricks.sliding_window_view(
+                ll_table_f32()[qual].astype(np.float64), k + 1, axis=1
+            ).sum(-1).ravel())
+            args = tuple(torch.from_numpy(a).cuda() for a in (seq, qual, lens))
+            for anchor in (sums[sums.size // 6], sums[sums.size // 2]):
+                for off in (-3e-6, -2.5e-6, 0.0, 1.5e-6, 2e-6, 2.5e-6, 3e-6):
+                    got = compare(args, k, float(anchor + off),
+                                  dict(precision="fast", return_flags=True),
+                                  f"threshold sweep, [{B} x {L}], {anchor} "
+                                  f"+ {off}")
+                    flagged += int(got[3].sum())
+        return flagged
+
+    swept = sweep(rng, 2048)
     if not swept:
         raise AssertionError("B2 threshold sweep flagged no read")
     # the shape the counting path launches: [ROWS, READ_LEN] full-length
-    # reads, k=21 (232 blocks of 128 threads against 16 above)
+    # reads, k=21 (928 one-warp blocks against 64 above)
     for quals in ("binned", "stress"):
         args = scan_batch(rng, K_COUNT, rows=ROWS, quals=quals)
         args[2][4:] = READ_LEN
@@ -622,6 +673,22 @@ def phase_kernels_scan(rng) -> float:
                           f"{name}, k={K_COUNT}, {quals}, main shape")
             if not int(got[0].sum()):
                 raise AssertionError("B2 at the main shape emitted nothing")
+    # the edges of the warp tiling (32 reads a warp, chunks of 16 positions,
+    # windows of 512): a generator of their own keeps the sequence and the
+    # reads below what the seed has always made them
+    erng = np.random.default_rng(SEED + 8)
+    for rows, L, k in B2_EDGES:
+        for quals in ("binned", "stress", "uniform"):
+            args = scan_batch(erng, k, rows=rows, quals=quals, L=L)
+            for name, kw in VARIANTS.items():
+                compare(args, k, min_ll, kw,
+                        f"{name}, [{rows} x {L}], k={k}, {quals}")
+    swept_edge = sweep(erng, 33)
+    edges = ", ".join(f"[{r} x {n}] k={k}" for r, n, k in B2_EDGES)
+    log(f"[kernels] B2 == plain, bitwise, on the warp tiling's edges "
+        f"[rows x L], k: {edges}, binned, stress and uniform qualities, "
+        f"all three instantiations; "
+        f"the threshold sweep on 33 rows flagged {swept_edge:,} reads")
     log(f"[kernels] B2 == plain, bitwise (emit, fwd and rc at every "
         f"position, flag), instantiations {list(VARIANTS)}, k in "
         f"{list(KS_SCAN)}, on ragged [2048, {READ_LEN}] batches with binned, "
@@ -650,6 +717,7 @@ def merge_cases(gen, rng) -> dict:
     package's adversarial one (repeat-dominated keys, the all-ones key
     among them); the store shape is two runs of unique keys, about half of
     the shorter one's shared, with the implicit row-number payload."""
+    from kmer_hasher_tpu_torch.ops import cuda_merge as b3
     from kmer_hasher_tpu_torch.ops import merge_sort as ms
 
     i32_min = torch.iinfo(torch.int32).min
@@ -689,15 +757,31 @@ def merge_cases(gen, rng) -> dict:
     b = torch.unique(torch.cat([shared, rand64(gen, STORE_B // 2)]))
     cases["store"] = (torch.cat([a, b]), None,
                       np.array([0, a.shape[0], a.shape[0] + b.shape[0]]))
+    # ties in the payload's top bit at the last sort round: five keys, the
+    # 32-bit payloads uniform, so half are >= 2^31 and order as unsigned
+    keys = five[torch.randint(0, 5, (SORT_N,), generator=gen, device="cuda")]
+    pay = torch.randint(-(1 << 31), 1 << 31, (SORT_N,), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    cases["last sort round, five keys, payloads >= 2^31"] = runs(keys, pay, 2)
+    del keys, pay
     # edge shapes from the host: empty runs, runs of 1, lengths that are no
-    # multiple of the 2,048-element tile; five keys, both payload forms
+    # multiple of the tile, pairs one below, at and above it, one key across
+    # several tiles, one side empty across many; five keys (or one), both
+    # payload forms
     vals = five.cpu().numpy()
+    t = b3.TILE
     for name, lens in (("an empty run and a run of 1", (0, 1)),
                        ("a run and an empty run", (4097, 0)),
-                       ("ragged", (2047, 2050, 6143, 1, 0, 0, 5, 70_001))):
+                       ("ragged", (2047, 2050, 6143, 1, 0, 0, 5, 70_001)),
+                       ("pairs of the tile +-1", (t - 1, t, t + 1, t - 1,
+                                                   t, t + 1)),
+                       ("one key across tiles", (3 * t + 5, 2 * t + 7)),
+                       ("A empty across tiles", (0, 9 * t + 1)),
+                       ("B empty across tiles", (7 * t + 3, 0))):
         ks, ps = [], []
         for n in lens:
-            k = rng.choice(vals, size=n)
+            k = (np.full(n, vals[3]) if name.startswith("one key") else
+                 rng.choice(vals, size=n))
             q = rng.integers(0, 2 ** 32, size=n, dtype=np.uint64)
             order = np.lexsort((q, k))
             ks.append(k[order])
@@ -769,7 +853,7 @@ def phase_main_merge_sort(seq: np.ndarray):
         tabs = api.kmer_pos(idx, 2 | 8)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = read_launches()
+        launches = read_launches("merge_sort_index")
     finally:
         if before is None:
             del os.environ["KMH_MERGE_SORT"]
@@ -850,13 +934,25 @@ def counted_wrappers():
             cp3.smem_gather, cpd.pipelined_copy, cpd.lane_gather)
 
 
+# path -> the elements B3 merged there, read with the path's launches
+B3_ROWS = {}
+
+
 def reset_launches():
+    from kmer_hasher_tpu_torch.ops import cuda_merge as b3
+
     for w in counted_wrappers():
         w.launches = 0
+    b3.merge.rows = 0
 
 
-def read_launches():
-    """(B1, B2, B3, P1, ..., P10) launches since the last reset."""
+def read_launches(path: str = None) -> tuple:
+    """(B1, B2, B3, P1, ..., P10) launches since the last reset; with a
+    main path's name, also B3's rows since then into ``B3_ROWS[path]``."""
+    from kmer_hasher_tpu_torch.ops import cuda_merge as b3
+
+    if path is not None:
+        B3_ROWS[path] = b3.merge.rows
     return tuple(w.launches for w in counted_wrappers())
 
 
@@ -944,7 +1040,7 @@ def phase_main_counting(genome: torch.Tensor, batches, tmp: Path):
     stretch_c = depth_probe_c(stretch, k)
     depth_c = api.seq_kmer_depth(store, stretch_c, k, semantics="c")
     torch.cuda.synchronize()
-    n_main = read_launches()
+    n_main = read_launches("counting")
     b1_n, b2_n, b3_n = n_main[:3]
 
     total = int(store.total_added.sum())
@@ -1019,7 +1115,7 @@ def phase_main_counting(genome: torch.Tensor, batches, tmp: Path):
     st = api.count_kmers_fq_sh_rp(str(fq), k=k, min_q=MIN_Q)
     torch.cuda.synchronize()
     t_file = time.perf_counter() - t0
-    n_file = read_launches()
+    n_file = read_launches("file")
     b1_file, b2_file, b3_file = n_file[:3]
     if b2_file < 1 or b3_file != two_run_merges(st):
         raise AssertionError(
@@ -1076,7 +1172,7 @@ def phase_main_threshold(fq: Path):
             for name in ("count_kmers_fq_sh", "count_kmers_fq")}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches = read_launches("threshold")
     merges = sum(two_run_merges(st) for st in card.values())
     if launches[2] < 1 or launches[2] != merges:
         raise AssertionError(
@@ -1439,7 +1535,7 @@ def phase_main_probes():
     res = sort_probes.run(PROBE_LOG_N)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches = read_launches("probes")
     # every probe line is one check launch plus one timing's launches
     per = 1 + _common.calls_per_timing(torch.device("cuda"))
     want = (0, 0, 0, per, 2 * len(sort_probes.GRANULES) * per, per, per,
@@ -1603,7 +1699,7 @@ def phase_main_probes_r3():
     res = sort_probes_r3.run(PROBE_LOG_N)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches = read_launches("probes_r3")
     timed = _common.calls_per_timing(torch.device("cuda"))
     per = 1 + timed  # a probe line: one check launch plus one timing's
     n_r2 = 2 * len(sort_probes_r3.ROWS_PER_COPY)
@@ -1912,7 +2008,7 @@ def phase_main_cli(seq: np.ndarray, batches, main: dict, tmp: Path,
                                   exact_ll="hybrid")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches = read_launches("cli")
     tm = st.timings
     if tm["reader"] != "native":
         raise AssertionError(f"the file entry read through {tm['reader']}: "
@@ -2042,7 +2138,7 @@ def phase_main_spill(gen, card: str):
     spec = api.kmer_spectrum(store, 10)
     t_spec = time.perf_counter() - t0
     control.flush()
-    launches = read_launches()
+    launches = read_launches("spill")
     peak = torch.cuda.max_memory_allocated()
 
     tm = store.timings
@@ -2355,7 +2451,7 @@ def phase_main_probes_dma():
     res = dma_probes_r3.run(PROBE_LOG_N)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches = read_launches("probes_dma")
     timed = _common.calls_per_timing(torch.device("cuda"))
     per = 1 + timed  # a line: one check launch plus one timing's
     n_copy = len(dma_probes_r3.COPY_PROBES)
@@ -2531,7 +2627,7 @@ def phase_main_sharded(batches, main: dict):
     spec = api.kmer_spectrum(st, 255)
     depth = api.seq_kmer_depth(st, main["stretch"], k)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = read_launches("sharded")
     if st.device.type != "cuda" or any(s.keys.device.type != "cuda"
                                        for s in st.shards):
         raise AssertionError("the sharded store does not live on the card")
@@ -2728,6 +2824,9 @@ def bound(bytes_moved: float, ops: float):
 
 PATHS = ("index", "merge_sort_index", "counting", "file", "threshold",
          "probes", "spill", "probes_r3", "cli", "probes_dma", "sharded")
+# the paths whose B3 launches are rounds of a merge sort (32-bit payload),
+# not two-run merges of the count store (implicit payload)
+SORT_ROUND_PATHS = ("merge_sort_index", "probes_dma")
 
 
 def main() -> None:
@@ -2758,7 +2857,7 @@ def main() -> None:
     seq = make_sequence(rng, SEQ_LEN)
     reset_launches()
     _, t_k32 = phase_main(seq)
-    launches = {"index": read_launches()}
+    launches = {"index": read_launches("index")}
     if launches["index"][2]:
         raise AssertionError("the index path launched B3 with the flag off")
     launches["merge_sort_index"] = phase_main_merge_sort(seq)
@@ -2787,6 +2886,7 @@ def main() -> None:
     launches["spill"] = phase_main_spill(gen_p, card)
     by_path = [{p: launches[p][i] for p in PATHS}
                for i in range(len(counted_wrappers()))]
+    b3_rows = {p: B3_ROWS[p] for p in PATHS}
     swept = phase_hybrid_full_width(rng)
     phase_card_vs_cpu(seq)
     phase_card_vs_cpu_counting(genome, batches)
@@ -2816,6 +2916,21 @@ def main() -> None:
                      n2 * 60)
     b3_bound = {shape: bound(t["bytes"], t["rows"] * (
         int(t["rows"]).bit_length() + 13)) for shape, t in b3_times.items()}
+    # B3's loss per path: the rows it merged there times the gap to the
+    # bound per row of the shape it merges there, the device time of
+    # phase_times_merge: sort rounds on SORT_ROUND_PATHS, two-run merges of
+    # the count store everywhere else
+    gap = {shape: ((t["device_ms"] or t["ms"]) - b3_bound[shape][0])
+           / t["rows"] for shape, t in b3_times.items()}
+    b3_loss = {p: b3_rows[p] * gap["last sort round" if p in SORT_ROUND_PATHS
+                                   else "store"] for p in PATHS}
+    log(f"[launches] B3 per path: launches / rows merged / rows x the gap "
+        f"to the bound a row of the shape merged there (store "
+        f"{gap['store'] * 1e9:.2f} ps, sort round "
+        f"{gap['last sort round'] * 1e9:.2f} ps; device times) = "
+        + "; ".join(f"{p} {by_path[2][p]} / {b3_rows[p]:,} / "
+                    f"{b3_loss[p]:.1f} ms" for p in PATHS if by_path[2][p])
+        + f"; in all {sum(b3_loss.values()):.1f} ms | {card}")
     main_variant = "f32+flags"
     main_shape = "store"  # what the counting path gives B3
     log(json.dumps({"kernels": [{
@@ -2859,6 +2974,8 @@ def main() -> None:
         "replaces": "kmer_hasher_tpu/ops/merge_sort.py:260",
         "launches": by_path[2]["counting"],
         "launches_by_path": by_path[2],
+        "rows_by_path": b3_rows,
+        "loss_ms_by_path": b3_loss,
         "max_abs_err": worst_b3,
         "ms": b3_times[main_shape]["ms"],
         "plain_ms": b3_times[main_shape]["plain_ms"],

@@ -16,15 +16,22 @@ merged element came from (the count store gathers its count rows by it).
 
 What bounds it on the card: device memory — a round reads and writes every
 element once, 24 bytes per element with a payload lane, 20 with the
-implicit one. One block per output tile of 2,048 elements of one pair finds
-its two diagonal split points in device memory, stages its A and B windows
-in shared memory, each thread merges 8 elements serially, and the tile is
-written coalesced; every pair of a round goes in one launch. PERF.md holds
+implicit one. A merge is two kernels, both launched by the one C entry: a
+partition pass finds the split of every tile boundary once, one thread a
+boundary, so no block waits on a search of its own; then one block per
+output tile of 4,096 elements of one pair stages its A and B windows in
+shared memory with ``cp.async``, in a padded layout free of bank
+conflicts, each thread merges 16 elements serially, and the tile is written
+coalesced; every pair of a round goes in one launch of each. PERF.md holds
 the measured times.
 
 :func:`merge` is the wrapper. CPU tensors take the plain version
-(:func:`plain`); CUDA tensors launch the kernel or raise. Each launch adds
-one to ``merge.launches``.
+(:func:`plain`); CUDA tensors launch the kernels or raise. Each merge adds
+one to ``merge.launches`` and its element count to ``merge.rows``. The
+bounds go up through pinned memory without a synchronisation, so the
+upload does not wait for the kernels queued before it; what is left of the
+wrapper's host time is its own Python, allocation and launch work, which at
+the count store's shape is about as long as the kernels (PERF.md).
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import torch
 from . import _build
 
 _U32 = 0xFFFFFFFF
+TILE = 4096  # output elements a block merges (kTile of merge_path.cu)
 
 
 def _check_bounds(bounds: Sequence[int], n: int) -> np.ndarray:
@@ -72,14 +80,17 @@ def plain(keys: torch.Tensor, pay: Optional[torch.Tensor],
 
 
 def _entry():
-    """The library and its typed ``kmh_merge_path`` entry."""
+    """The library, its typed ``kmh_merge_path`` entry and the entry that
+    sizes the partition pass's scratch."""
     lib = _build.load()
-    fn = lib.kmh_merge_path
+    fn, scratch = lib.kmh_merge_path, lib.kmh_merge_path_scratch
     if fn.argtypes is None:
         p, ll = ctypes.c_void_p, ctypes.c_longlong
         fn.argtypes = [p, p, p, ll, ll, p, p, ctypes.c_int, p]
         fn.restype = ctypes.c_int
-    return lib, fn
+        scratch.argtypes = [ll, ll]
+        scratch.restype = ll
+    return lib, fn, scratch
 
 
 def merge(keys: torch.Tensor, pay: Optional[torch.Tensor],
@@ -112,18 +123,37 @@ def merge(keys: torch.Tensor, pay: Optional[torch.Tensor],
     max_pair = int((b[2::2] - b[:-2:2]).max())
     if max_pair == 0:
         return out_k, out_p
-    # the bounds go up on the launch's stream; the caching allocator hands
-    # their memory out again only to later work on that stream
-    b_dev = torch.from_numpy(b).to(dev)
-    lib, fn = _entry()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(keys.data_ptr(), None if pay is None else pay.data_ptr(),
-                 b_dev.data_ptr(), b.size // 2, max_pair, out_k.data_ptr(),
-                 out_p.data_ptr(), torch.cuda.current_device(), stream)
+    lib, fn, scratch = _entry()
+    n_pairs = b.size // 2
+    # one device buffer: the bounds, then the partition pass's splits
+    b_dev = torch.empty(b.size + scratch(n_pairs, max_pair),
+                        dtype=torch.int64, device=dev)
+    # The bounds go up from pinned memory without a synchronisation. Safe
+    # to drop ``host`` on return: it comes from PyTorch's caching host
+    # allocator, which records an event on the stream for a non-blocking
+    # copy from it and hands the block out again only once that event has
+    # completed. ``b_dev`` is used only on this stream, so the caching
+    # device allocator needs no more.
+    host = torch.from_numpy(b).pin_memory()
+    b_dev[: b.size].copy_(host, non_blocking=True)
+    # The C entry makes the keys' device the thread's device; a device
+    # guard is entered only where another one is current.
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    stream = torch.cuda.current_stream(index).cuda_stream
+    args = (keys.data_ptr(), None if pay is None else pay.data_ptr(),
+            b_dev.data_ptr(), n_pairs, max_pair, out_k.data_ptr(),
+            out_p.data_ptr(), index, stream)
+    if current == index:
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
     _build.check(lib, err, "B3 merge_path launch")
     merge.launches += 1
+    merge.rows += n
     return out_k, out_p
 
 
 merge.launches = 0
+merge.rows = 0

@@ -8,13 +8,17 @@ with the two error lanes and the per-read flag (``return_flags``), and f64
 over the ``Q_TO_LL`` table (``precision="exact"``) — the TPU kernel is f32
 only because the TPU emulates f64; this card does not.
 
-What bounds it on the card: device memory, nominally — per (read,
-position) it reads 2 bytes (base, quality) and writes 17 (emit, two int64
-registers). The design is the simple one: a thread owns a read, keeps the
-FSM state in registers and loops over the read's positions, with the
-per-quality log-likelihood in a 256-entry shared-memory table. That layout
-does not coalesce and keeps few warps in flight, so the kernel runs well
-above its bound; PERF.md holds the measured times.
+What bounds it on the card: device memory — per (read, position) it reads
+2 bytes (base, quality) and writes 17 (emit, two int64 registers). A thread
+owns a read and keeps the FSM state in registers, with the per-quality
+log-likelihood in a 256-entry shared-memory table; a warp owns 32
+consecutive reads, stages their bases and qualities into shared memory
+with 16-byte ``cp.async`` copies and puts its outputs out through shared
+memory in chunks of 16 positions from 32-byte sector boundaries, so that
+consecutive lanes store to consecutive addresses and no sector is written
+in two parts (a thread storing its own row would touch 32 rows an
+instruction). Blocks of one warp spread the counting path's 928 warps over
+the card in one wave. PERF.md holds the measured times.
 
 :func:`scan` is the wrapper. A CPU tensor takes the plain version
 (:func:`plain`, which is ``ops.scan_iter.ll_scan``); a CUDA tensor launches

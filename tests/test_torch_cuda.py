@@ -103,7 +103,7 @@ def read_batch(rng, k, B=300, L=151, quals="binned"):
     else:
         q = (33 + rng.integers(0, 42, size=(B, L))).astype(np.uint8)
     lengths = rng.integers(0, L + 1, size=B).astype(np.int32)
-    lengths[:4] = (0, k, k + 1, L)
+    lengths[:4] = (0, k, k + 1, L)[:B]
     return seq, q, lengths
 
 
@@ -121,6 +121,30 @@ def test_b2_kernel_matches_plain(cuda, k, variant, quals):
     got = cuda_scan.scan(*args, k, float(Q_TO_LL[53]), **kw)
     torch.cuda.synchronize()
     assert cuda_scan.scan.launches == before + 1
+    want = cuda_scan.plain(*args, k, float(Q_TO_LL[53]), **kw)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# the edges of B2's tiling (rows, L, k): 32 reads a warp, chunks of 16
+# positions, windows of 512 positions; k = 1 and k = 32
+B2_EDGES = [(1, 151, 21), (33, 151, 21), (29_697, 151, 21), (64, 8, 5),
+            (64, 1, 1), (64, 16, 9), (64, 32, 32), (96, 160, 21),
+            (40, 600, 21), (35, 1100, 31), (256, 151, 1), (256, 151, 32)]
+
+
+@pytest.mark.parametrize("variant", ["exact", "fast", "flags"])
+@pytest.mark.parametrize("rows,L,k", B2_EDGES)
+def test_b2_kernel_matches_plain_on_the_tiling_edges(cuda, rows, L, k,
+                                                      variant):
+    rng = np.random.default_rng(rows + 7 * L + k)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in read_batch(rng, k, B=rows, L=L, quals="uniform")]
+    kw = dict(precision="exact" if variant == "exact" else "fast",
+              return_flags=variant == "flags",
+              min_q_char=53 if variant == "flags" else None)
+    got = cuda_scan.scan(*args, k, float(Q_TO_LL[53]), **kw)
     want = cuda_scan.plain(*args, k, float(Q_TO_LL[53]), **kw)
     assert len(got) == len(want)
     for g, w in zip(got, want):
@@ -232,6 +256,11 @@ B3_SHAPES = {
     "B empty": (5000, 0),
     "64 equal runs": (4096,) * 64,
     "not a multiple of the tile": (2047, 2050, 6143, 1),
+    "pairs of the tile +-1": (cuda_merge.TILE - 1, cuda_merge.TILE,
+                              cuda_merge.TILE + 1, cuda_merge.TILE - 1,
+                              cuda_merge.TILE, cuda_merge.TILE + 1),
+    "A empty across tiles": (0, 9 * cuda_merge.TILE + 1),
+    "B empty across tiles": (7 * cuda_merge.TILE + 3, 0),
 }
 
 
@@ -249,6 +278,48 @@ def test_b3_kernel_matches_plain(cuda, shape, dup, implicit):
     assert cuda_merge.merge.launches == before + 1
     want = cuda_merge.plain(keys, pay, bounds)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_b3_one_key_across_tiles(cuda, implicit):
+    """A run of one repeated key (the all-ones k-mer's) over several tiles
+    on both sides: every tile boundary falls inside the run, and ties go
+    by payload, A's first; the wrapper counts one merge and its rows."""
+    rng = np.random.default_rng(17)
+    lens = (3 * cuda_merge.TILE + 5, 2 * cuda_merge.TILE + 7)
+    keys = torch.full((sum(lens),), 2 ** 63 - 1, dtype=torch.int64)
+    pay = torch.from_numpy(np.concatenate([np.sort(rng.integers(
+        0, 2 ** 32, size=n, dtype=np.uint64)).astype(np.uint32)
+        for n in lens]).view(np.int32).copy())
+    bounds = np.concatenate([[0], np.cumsum(lens)])
+    keys = keys.to(cuda)
+    pay = None if implicit else pay.to(cuda)
+    launches, rows = cuda_merge.merge.launches, cuda_merge.merge.rows
+    got = cuda_merge.merge(keys, pay, bounds)
+    assert cuda_merge.merge.launches == launches + 1
+    assert cuda_merge.merge.rows == rows + sum(lens)
+    want = cuda_merge.plain(keys, pay, bounds)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_b3_payloads_above_2_31_at_the_last_sort_round(cuda):
+    """The 2^26 sort round's last merge with five keys and uniform 32-bit
+    payloads: half of them are >= 2^31 and must order as unsigned."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(26)
+    n = 1 << 26
+    five = torch.from_numpy((FIVE_KEYS ^ SIGN).view(np.int64)).to(cuda)
+    keys = five[torch.randint(0, 5, (n,), generator=gen, device=cuda)]
+    pay = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    k2, p2 = merge_sort.lex_sort(keys.reshape(2, -1), pay.reshape(2, -1))
+    keys, pay = k2.reshape(-1), p2.reshape(-1)
+    del k2, p2
+    bounds = (0, n // 2, n)
+    got = cuda_merge.merge(keys, pay, bounds)
+    want = cuda_merge.plain(keys, pay, bounds)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((merge_sort.unsigned_pay(got[1]) >= 2 ** 31).any())
 
 
 @pytest.mark.parametrize("dup", [False, True])
