@@ -13,7 +13,12 @@ is nonzero:
 
 1. device  — needs torch.cuda; prints the card and its power limit;
 2. build   — compiles kmer_hasher_tpu_torch/csrc/*.cu with nvcc (sm_90a);
-3. kernels — B1 (encode), B2 (quality-likelihood FSM, three
+3. kernels — B1 (encode; also on the edges of its 4,096-window tiles:
+             starts 1, 3 and 15 bytes off the 16-byte boundary, the counting
+             batch [29,696, 151] with lengths 0, k-1, k, 151 and ragged from
+             the card and from the host, rows of the tile -1, the tile and
+             the tile +1, N at tile edges and in the halo), B2
+             (quality-likelihood FSM, three
              instantiations; also on the edges of its warp tiling: rows no
              multiple of 32, rows shorter than, equal to and a multiple of
              its 16-position chunk, rows over one 512-position window, k = 1
@@ -28,7 +33,8 @@ is nonzero:
              PyTorch versions on the card, bitwise, at the shapes the main
              paths launch them with; the round-3 probe kernels P5-P8 (row
              windows copied in step order, also with write windows made to
-             overlap; a gather of 2 KB records; P2's copies through
+             overlap, and rows no step writes on memory that held -1; a
+             gather of 2 KB records; P2's copies through
              cp.async; a gather from a table in shared memory; at the TPU
              probes' shapes, at 2^26 elements and on edge inputs) the same
              way; the DMA probe kernels P9 (row windows copied in step order
@@ -107,7 +113,8 @@ is nonzero:
              count_kmers_fq, bitwise; the count verb with --device cpu on a
              small file; 8 shards spilling to memory and to files, and the
              8-shard checkpoint onto 8 shards and into one store;
-7. times   — B1, B2 and B3 vs plain (B3 also beside torch.sort of the
+7. times   — B1 (k=32 and k=21), B2 and B3 vs plain (B3 also beside
+             torch.sort of the
              concatenated keys, the one library call that computes a
              merge), P1-P10 vs plain and vs one library call each where
              one exists,
@@ -146,6 +153,7 @@ REPEAT_AT, UNIT, COPIES = 1_000_000, 5_000, 40
 QUERY_AT, QUERY_LEN = 500_000, 1_000_000
 PREFIX = 1 << 22
 KS_KERNEL = (1, 4, 16, 17, 21, 31, 32)
+KS_EDGE = (1, 2, 15, 16, 17, 21, 31, 32)  # B1 on the edges of its tiling
 # the counting cell: the device-side end-to-end configuration of the JAX
 # package's tools/chip_probes/e2e_device_bench.py
 N_BATCHES, ROWS, READ_LEN = 64, 29_696, 151
@@ -187,6 +195,7 @@ SPILL_BATCHES, SPILL_BYTES, SPILL_FOLD_BUDGET = 244, 3 << 29, 3 << 30
 SPILL_MIN_DISTINCT = 500_000_000
 # the DMA probes: the TPU script's row counts per copy and its gather size
 DMA_ROWS, DMA_GATHER_REF_LOG_N = (512, 64, 8), 20
+DIRTY_P5 = "rows no step writes, dirty memory, R=100"  # a case of P5
 # the sharded store: 8 logical shards; card vs CPU on a cut of the cell
 SHARDS, SH_CPU_BATCHES, SH_CPU_ROWS, SH_SPILL = 8, 8, 4096, 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -346,6 +355,94 @@ def phase_kernels(rng):
     log(f"[kernels] B1 == plain, bitwise, k in {list(KS_KERNEL)}, on "
         f"[2^26] (true_len 2^26-12345) and [256, 2^14] ragged "
         f"(max_abs_err {worst})")
+    # the edges of the kernel's tiling, from a generator of their own so
+    # that the sequence and the reads below stay what the seed made them
+    erng = np.random.default_rng(SEED + 9)
+    tile = b1.TILE
+
+    def n_at_tile_edges(a):
+        """N at each tile's first and last byte and in the halo that the
+        tile before reads."""
+        flat = a.reshape(-1)
+        for e in range(tile, flat.shape[0], tile):
+            for d in (-1, 0, 1, 30):
+                if e + d < flat.shape[0]:
+                    flat[e + d] = ord("N")
+        return a
+
+    def bases(shape):
+        return erng.choice(np.frombuffer(b"ACGTacgtN", np.uint8), size=shape,
+                           p=[0.124] * 8 + [0.008])
+
+    cb = torch.from_numpy(bases((ROWS, READ_LEN))).to(dev)
+    cb_len = erng.integers(0, READ_LEN + 1, size=ROWS)
+    around = {rl: torch.from_numpy(n_at_tile_edges(bases((64, rl)))).to(dev)
+              for rl in (tile - 1, tile, tile + 1)}
+    edge_1d = torch.from_numpy(n_at_tile_edges(bases(1 << 20))).to(dev)
+    edges = 0
+    for k in KS_EDGE:
+        cb_len[:4] = (0, k - 1, k, READ_LEN)
+        cases = [(f"[2^26 - 16] from byte offset {off}",
+                  x[off: off + L - 16], L - 16 - 7) for off in (1, 3, 15)]
+        cases += [("[29,696, 151], lengths 0, k-1, k, 151 and ragged, on "
+                   "the card", cb, torch.from_numpy(cb_len).to(dev)),
+                  ("[29,696, 151], the same lengths from the host", cb,
+                   cb_len.astype(np.int32))]
+        cases += [(f"[64, {rl}], N at the tile edges", xr,
+                   torch.from_numpy(erng.integers(0, rl + 1, size=64)).to(
+                       dev)) for rl, xr in around.items()]
+        cases.append(("[2^20], N at the tile edges", edge_1d, (1 << 20) - 3))
+        for what, inp, t in cases:
+            key, valid = b1.encode(inp, k, t)
+            pk, pv = b1.plain(inp, k, torch.as_tensor(t, device=dev))
+            torch.cuda.synchronize()
+            err = max(max_abs_err(key, pk), max_abs_err(valid, pv))
+            worst = max(worst, err)
+            if err or not bool(valid.any()):
+                raise AssertionError(
+                    f"B1 disagrees with its plain version: k={k}, {what}, "
+                    f"max_abs_err={err}")
+            edges += 1
+        del key, valid, pk, pv
+    log(f"[kernels] B1 == plain, bitwise, on the edges of its {tile}-window "
+        f"tiles, k in {list(KS_EDGE)}: {edges} inputs: [2^26 - 16] from byte "
+        f"offsets 1, 3 and 15 of its allocation; the counting batch "
+        f"[29,696, 151] with lengths 0, k-1, k, 151 and ragged, from the "
+        f"card and from the host; rows of {tile - 1}, {tile} and "
+        f"{tile + 1} bytes; N at every tile's first and last byte and in "
+        f"the halo (max_abs_err {worst})")
+    # inputs shorter than a chunk or than k: rows of 1-17 bytes (several in
+    # one chunk, each thread's row found by division), per-row lengths and
+    # one length for every row; 1-D inputs of 1-20 bytes from byte offsets
+    # 0, 3 and 15 (one chunk across both ends). Many have no valid window.
+    srng = np.random.default_rng(SEED + 10)
+    buf = torch.from_numpy(bases(1 << 15)).to(dev)
+    short = []
+    for rl in (1, 5, 15, 17):
+        lens = srng.integers(0, rl + 1, size=1000)
+        lens[0] = rl
+        xr = buf[3: 3 + 1000 * rl].view(1000, rl)
+        short += [(f"[1000, {rl}] from byte offset 3", xr, t)
+                  for t in (lens, torch.from_numpy(lens).to(dev), rl)]
+    short += [(f"[{n}] from byte offset {off}", buf[off: off + n], t)
+              for n in range(1, 21) for off in (0, 3, 15)
+              for t in (n, max(n - 2, 0))]
+    for k in KS_EDGE:
+        for what, inp, t in short:
+            key, valid = b1.encode(inp, k, t)
+            pk, pv = b1.plain(inp, k, torch.as_tensor(t, device=dev))
+            torch.cuda.synchronize()
+            err = max(max_abs_err(key, pk), max_abs_err(valid, pv))
+            worst = max(worst, err)
+            if err:
+                raise AssertionError(
+                    f"B1 disagrees with its plain version: k={k}, {what}, "
+                    f"max_abs_err={err}")
+    log(f"[kernels] B1 == plain, bitwise, on {len(short) * len(KS_EDGE)} "
+        f"short inputs, k in {list(KS_EDGE)}: rows of 1, 5, 15 and 17 bytes "
+        f"from byte offset 3 with per-row lengths from the host and the "
+        f"card and one length for all; 1-D inputs of 1-20 bytes from byte "
+        f"offsets 0, 3 and 15 (max_abs_err {worst})")
     return worst
 
 
@@ -469,14 +566,17 @@ def phase_times(seq: np.ndarray, card: str):
     x = torch.full((L,), ord("N"), dtype=torch.uint8)
     x[:SEQ_LEN] = torch.from_numpy(seq)
     x = x.cuda()
+    rows = {}
+    for k in (32, 21):
+        ms = cuda_ms(lambda: b1.encode(x, k, SEQ_LEN))
+        plain_ms = cuda_ms(lambda: b1.plain(x, k, SEQ_LEN))
+        row = rows[f"2^26 bytes, k={k}"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            **device_split(lambda: b1.encode(x, k, SEQ_LEN), iters=10)}
+        log(f"[times] B1 encode, k={k}, 2^26 bytes: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms (CUDA events, mean of 20)"
+            f"{split_txt(row)} | {card}")
     k = 32
-    ms = cuda_ms(lambda: b1.encode(x, k, SEQ_LEN))
-    plain_ms = cuda_ms(lambda: b1.plain(x, k, SEQ_LEN))
-    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-           **device_split(lambda: b1.encode(x, k, SEQ_LEN), iters=10)}
-    log(f"[times] B1 encode, k=32, 2^26 bytes: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms (CUDA events, mean of 20){split_txt(row)} | "
-        f"{card}")
 
     # flag off and on in turns (off, on, on, off, ...), after a warm-up
     # of each, so the two are compared within one call on one card
@@ -510,7 +610,7 @@ def phase_times(seq: np.ndarray, card: str):
     full = time.perf_counter() - t0
     log(f"[times] make_kmer_hash(k=32) of {SEQ_LEN:,} bases from host + "
         f"drain of {n:,} pair rows: {full:.3f} s (warm) | {card}")
-    return row
+    return rows
 
 
 def host_steps(fn, calls: int = 20) -> dict:
@@ -934,25 +1034,31 @@ def counted_wrappers():
             cp3.smem_gather, cpd.pipelined_copy, cpd.lane_gather)
 
 
-# path -> the elements B3 merged there, read with the path's launches
-B3_ROWS = {}
+# path -> the elements B3 merged there and the window starts B1 encoded
+# there, read with the path's launches
+B3_ROWS, B1_POSITIONS = {}, {}
 
 
 def reset_launches():
+    from kmer_hasher_tpu_torch.ops import cuda_encode as b1
     from kmer_hasher_tpu_torch.ops import cuda_merge as b3
 
     for w in counted_wrappers():
         w.launches = 0
     b3.merge.rows = 0
+    b1.encode.positions = 0
 
 
 def read_launches(path: str = None) -> tuple:
     """(B1, B2, B3, P1, ..., P10) launches since the last reset; with a
-    main path's name, also B3's rows since then into ``B3_ROWS[path]``."""
+    main path's name, also B3's rows and B1's window starts since then into
+    ``B3_ROWS[path]`` and ``B1_POSITIONS[path]``."""
+    from kmer_hasher_tpu_torch.ops import cuda_encode as b1
     from kmer_hasher_tpu_torch.ops import cuda_merge as b3
 
     if path is not None:
         B3_ROWS[path] = b3.merge.rows
+        B1_POSITIONS[path] = b1.encode.positions
     return tuple(w.launches for w in counted_wrappers())
 
 
@@ -1581,6 +1687,12 @@ def probe_r3_cases(gen) -> dict:
             sp3.reference_row_offsets(rows_ref, r, sp3.REF_STEPS)), r)
         cases["P5"][f"full, R={r}"] = (x2, dev(
             sp3.spread_row_offsets(rows_full, r)), r)
+        # the round-3 entry's other R2 line: the TPU's 64 steps on 2^26
+        cases["P5"][f"full, 64 steps, R={r}"] = (x2, dev(
+            sp3.reference_row_offsets(rows_full, r, sp3.REF_STEPS)), r)
+    # the DMA entry runs P5 beside P9 at R = 64 as well
+    cases["P5"]["full, R=64"] = (x2, dev(sp3.spread_row_offsets(
+        rows_full, 64)), 64)
     # 4,096 steps of 512 rows inside 20,000 rows: about a hundred write
     # windows over every row; then chains one row apart and repeats
     cases["P5"]["overlapping, R=512"] = (x2_ref, dev(
@@ -1590,6 +1702,11 @@ def probe_r3_cases(gen) -> dict:
     cases["P5"]["steps outside x, R=200"] = (x2_ref, dev(
         [0, 100, rows_ref - 200, -1, rows_ref - 199, 2 ** 31 - 1, 300,
          -2 ** 31, rows_ref, 150]), 200)
+    # 40 windows of 100 rows in the first quarter leave most rows to no
+    # step; the call comes right after a tensor of x's size full of -1 was
+    # freed (see phase_kernels_probes_r3), so a row not written shows
+    cases["P5"][DIRTY_P5] = (x2_ref, dev(
+        rng.integers(0, rows_ref // 4 - 100, size=40)), 100)
     cases["P6"]["ref"] = (x2_ref, dev(sp3.reference_row_offsets(
         rows_ref, cp3.SMALL_ROWS, sp3.REF_RECORDS)))
     cases["P6"]["full"] = (x2, dev(sp3.spread_row_offsets(
@@ -1641,6 +1758,9 @@ def phase_kernels_probes_r3(cases: dict) -> dict:
     for name, (fn, plain) in probe_r3_kernels().items():
         worst[name] = 0.0
         for shape, args in cases[name].items():
+            if shape == DIRTY_P5:  # the caching allocator hands this out
+                dirty = torch.full_like(args[0], -1)
+                del dirty
             got = fn(*args)
             want = plain(*args)
             torch.cuda.synchronize()
@@ -1671,6 +1791,9 @@ def phase_kernels_probes_r3(cases: dict) -> dict:
     if not overlaps["ref, R=512"][0] < overlaps["ref, R=512"][1]:
         raise AssertionError("the TPU probe's 64 windows of 512 rows were "
                              "expected to overlap")
+    if not overlaps[DIRTY_P5][0] < cases["P5"][DIRTY_P5][0].shape[0] // 2:
+        raise AssertionError("the dirty-memory case was meant to leave most "
+                             "rows to no step")
     # what no plain version takes: offsets outside x give zeros, as in P2
     x, n = cases["P7"]["ref, granule 1"][0], 1 << PROBE_REF_LOG_N
     offs = torch.tensor([-5, n - 100, 2 ** 31 - 1, -2 ** 31, 7],
@@ -1795,6 +1918,40 @@ def phase_times_probes_r3(cases: dict, card: str) -> dict:
                 f"{extra} (bound {b_ms:.4f} ms), plain {plain_ms:.4f} ms, "
                 f"{lib_txt} (CUDA events){split_txt(split)} | {card}")
     return out
+
+
+def p5_losses(launches: dict, times: dict, card: str) -> dict:
+    """P5's loss per path: its launches there, by the shape each ran, times
+    that shape's gap to its bound (device times, events where the trace
+    holds none). The round-3 entry's R2 lines run the TPU's 64 steps and
+    every window at R = 512 and 8 on 2^26 elements, a check launch and one
+    timing each; the DMA entry runs P5 beside P9 over every window at R =
+    512 (twice), 64 and 8, one timing each."""
+    from kmer_hasher_tpu_torch.probes import _common, dma_probes_r3
+    from kmer_hasher_tpu_torch.probes import sort_probes_r3 as sp3
+
+    timed = _common.calls_per_timing(torch.device("cuda"))
+    runs = {p: {} for p in PATHS}
+    for r in sp3.ROWS_PER_COPY:
+        for shape in (f"full, 64 steps, R={r}", f"full, R={r}"):
+            runs["probes_r3"][shape] = 1 + timed
+    for r, _ in dma_probes_r3.COPY_PROBES:
+        shape = f"full, R={r}"
+        runs["probes_dma"][shape] = runs["probes_dma"].get(shape, 0) + timed
+    for p in PATHS:
+        if sum(runs[p].values()) != launches[p]:
+            raise AssertionError(f"P5 launched {launches[p]} times on {p}, "
+                                 f"its shapes there add up to {runs[p]}")
+    gap = {shape: (t["device_ms"] or t["ms"]) - t["bound_ms"]
+           for shape, t in times.items()}
+    loss = {p: sum(n * gap[s] for s, n in runs[p].items()) for p in PATHS}
+    log("[launches] P5 per path: launches x the gap to the bound of the "
+        "shape each ran (device times) = " + "; ".join(
+            f"{p} " + " + ".join(f"{n} x {gap[s]:.4f} ({s})"
+                                 for s, n in runs[p].items())
+            + f" = {loss[p]:.2f} ms" for p in PATHS if launches[p])
+        + f"; in all {sum(loss.values()):.2f} ms | {card}")
+    return loss
 
 
 # -- the command line -----------------------------------------------------------
@@ -2405,7 +2562,10 @@ def p9_source_rows(x, offs, r) -> np.ndarray:
 def phase_kernels_probes_dma(cases: dict) -> dict:
     """P9 and P10 against their plain versions on the same CUDA tensors,
     bitwise over the whole output; P9 also against numpy's loop over row
-    numbers. Returns the worst max_abs_err by kernel."""
+    numbers and, with the offsets read, against P5. Returns the worst
+    max_abs_err by kernel."""
+    from kmer_hasher_tpu_torch.probes import cuda_probes_r3 as cp3
+
     worst = {}
     for name, (fn, plain) in probe_dma_kernels().items():
         worst[name] = 0.0
@@ -2427,6 +2587,9 @@ def phase_kernels_probes_dma(cases: dict) -> dict:
                         and not bool(got[~live].any())):
                     raise AssertionError(
                         f"P9 disagrees with numpy's loop: {shape}")
+                if offs is not None and not torch.equal(
+                        got, cp3.dyn_copy_2d(x, offs, r)):
+                    raise AssertionError(f"P9 disagrees with P5: {shape}")
             else:
                 tab, idx = args
                 ok = (idx >= 0) & (idx < tab.shape[0])
@@ -2436,8 +2599,9 @@ def phase_kernels_probes_dma(cases: dict) -> dict:
         log(f"[kernels] {name} == plain, bitwise over the whole output, on "
             f"{len(cases[name])} inputs: {', '.join(cases[name])} "
             f"(max_abs_err {worst[name]})"
-            + ("; equal to numpy's loop in step order as well"
-               if name == "P9" else "; 0 for every index outside [0, 1024)"))
+            + ("; equal to numpy's loop in step order as well, and to P5 "
+               "where the offsets are read" if name == "P9"
+               else "; 0 for every index outside [0, 1024)"))
     return worst
 
 
@@ -2525,8 +2689,7 @@ def phase_times_probes_dma(cases: dict, card: str) -> dict:
                          + 4 * x.numel()
                          + (0 if offs is None else 4 * offs.numel()))
                 extra = (f"; P5 {row['p5_ms']:.4f} ms for the same call "
-                         f"(its zero-fill included; P9 writes zeros only to "
-                         f"rows no step owns)")
+                         f"(both write zeros only to rows no step owns)")
             else:
                 idx = args[1]
                 row["copy_ms"] = cuda_ms(lambda: cp.copy(idx),
@@ -2890,7 +3053,7 @@ def main() -> None:
     swept = phase_hybrid_full_width(rng)
     phase_card_vs_cpu(seq)
     phase_card_vs_cpu_counting(genome, batches)
-    b1_row = phase_times(seq, card)
+    b1_rows = phase_times(seq, card)
     b3_times = phase_times_merge(cases, card)
     log(f"[times] merge_runs of two runs at the store shape peaks at "
         f"{merge_peak_factor(cases['store']):.2f} x its inputs' bytes in "
@@ -2906,11 +3069,12 @@ def main() -> None:
     b2_rows = phase_times_counting(batches, card, stats)
     phase_times_sharded(batches, card, sh_stats["wall"])
     # least time for the same work: every input byte read once, every output
-    # byte written once; B1 does ~4 integer ops per base of each window, B2
+    # byte written once; B1 does ~30 integer ops per window (two funnel
+    # shifts, the row's end, the length) and ~2 per base it packs, B2
     # ~60 float and integer ops per (read, position), B3 about log2(rows) +
     # 13 comparisons per row (two binary searches and the serial merge)
     n1 = 1 << 26
-    b1_bound = bound(n1 * (1 + 8 + 1) + 4, n1 * 32 * 4)
+    b1_bound = bound(n1 * (1 + 8 + 1), n1 * 32)
     n2 = ROWS * READ_LEN
     b2_bound = bound(n2 * (2 + 1 + 8 + 8) + ROWS * (4 + 1) + 256 * 4,
                      n2 * 60)
@@ -2931,6 +3095,17 @@ def main() -> None:
         + "; ".join(f"{p} {by_path[2][p]} / {b3_rows[p]:,} / "
                     f"{b3_loss[p]:.1f} ms" for p in PATHS if by_path[2][p])
         + f"; in all {sum(b3_loss.values()):.1f} ms | {card}")
+    # B1's loss per path: the window starts it encoded there times the gap
+    # to the bound per window start at 2^26, k=32 (device times)
+    b1_main = b1_rows["2^26 bytes, k=32"]
+    b1_gap = ((b1_main["device_ms"] or b1_main["ms"]) - b1_bound[0]) / n1
+    b1_loss = {p: B1_POSITIONS[p] * b1_gap for p in PATHS}
+    log(f"[launches] B1 per path: launches / window starts / window starts "
+        f"x the gap to the bound at 2^26, k=32 ({b1_gap * 1e9:.2f} ps) = "
+        + "; ".join(f"{p} {by_path[0][p]} / {B1_POSITIONS[p]:,} / "
+                    f"{b1_loss[p]:.2f} ms" for p in PATHS if by_path[0][p])
+        + f"; in all {sum(b1_loss.values()):.2f} ms | {card}")
+    p5_loss = p5_losses(by_path[7], p_times["P5"], card)
     main_variant = "f32+flags"
     main_shape = "store"  # what the counting path gives B3
     log(json.dumps({"kernels": [{
@@ -2941,14 +3116,17 @@ def main() -> None:
         "launches": by_path[0]["index"],
         "launches_by_path": by_path[0],
         "max_abs_err": worst_b1,
-        "ms": b1_row["ms"],
-        "plain_ms": b1_row["plain_ms"],
+        "positions_by_path": {p: B1_POSITIONS[p] for p in PATHS},
+        "loss_ms_by_path": b1_loss,
+        "ms": b1_main["ms"],
+        "plain_ms": b1_main["plain_ms"],
         "bound_ms": b1_bound[0],
         "bound_by": b1_bound[1],
         "library_ms": None,
         "shape": "2^26 bytes, k=32",
-        "by_shape": {"2^26 bytes, k=32": dict(
-            b1_row, bound_ms=b1_bound[0], bound_by=b1_bound[1])},
+        "by_shape": {shape: dict(t, bound_ms=b1_bound[0],
+                                 bound_by=b1_bound[1])
+                     for shape, t in b1_rows.items()},
     }, {
         "name": "B2 ll_scan",
         "route": "cuda",
@@ -3014,6 +3192,7 @@ def main() -> None:
         "max_abs_err": worst_p[name],
         "shape": shape,
         "by_shape": p_times[name],
+        **({"loss_ms_by_path": p5_loss} if name == "P5" else {}),
     }, **{key: p_times[name][shape][key] for key in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for i, (name, title, source, line, shape) in enumerate((

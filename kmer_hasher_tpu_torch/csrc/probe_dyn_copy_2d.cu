@@ -18,11 +18,22 @@
 // decided once, in a pass before the copy: every step writes its number into
 // owner[row] for the rows of its write window with atomicMax (owner starts at
 // -1), which leaves each row with the last step that writes it at 12 bytes a
-// row (probe_owner.cuh, shared with P9). The copy then moves, with 16-byte
-// loads and stores (a row is 512
-// bytes, so every window is aligned), only the rows its step owns. No row of
-// the output is then written twice, and the result is the sequential one
-// whatever the schedule.
+// row (probe_owner.cuh, shared with P9). The copy then runs over the rows of
+// the output, not over the steps: a warp owns 32 neighbouring rows, reads
+// their owners with one load and, per row, copies source row
+// offs[t] + j - offs[T-1-t] of its owner t, or writes zeros where no step
+// owns the row. A row is 512 bytes, 16 a lane, and a lane has 8 rows' loads
+// in flight before it stores them. So every row of the output is written
+// exactly once, the output needs no zero fill first, the result is the
+// sequential one whatever the schedule, and the grid depends on neither the
+// number of steps nor R. The first version ran a block per (step, 128 rows)
+// over a zero-filled output: 0.3365 ms of device time at R = 8 (65,536
+// blocks of 4 KB), 0.2722 at R = 512, against a 0.1603 ms bound; its zero
+// fill took 0.081 ms of each and its copy 0.251 and 0.186. This one takes
+// 0.1925 and 0.1909 ms (83-84% of the bound), the owner fill and pass 5 us
+// of it; P1's plain copy of the same bytes takes 0.1768 (NVIDIA H100 80GB
+// HBM3, 700.00 W). Where few rows are owned, its zeros go out at about 2.5
+// TB/s, slower than a fill kernel's 3.3.
 //
 // Offsets must lie in [0, rows - R]. A step whose read or write window does
 // not lie inside is skipped as a whole: it reads nothing, writes nothing and
@@ -36,63 +47,71 @@
 namespace {
 
 constexpr int kBlock = 256;
-constexpr int kRowVec = 32;        // uint4 per row of 128 u32
-constexpr int kRowsPerBlock = 128;  // rows of one window a block copies
+constexpr int kWarp = 32;
+constexpr int kRowVec = 32;  // uint4 per row of 128 u32: one a lane
+constexpr int kBatch = 8;    // rows whose loads a lane keeps in flight
 
 __global__ void __launch_bounds__(kBlock)
 dyn_copy_2d_kernel(const uint4* __restrict__ x, long long rows,
-                   const int* __restrict__ offs, int steps, int r,
+                   const int* __restrict__ offs, int steps,
                    const int* __restrict__ owner, uint4* __restrict__ out) {
-  __shared__ unsigned char mine[kRowsPerBlock];
-  const int t = blockIdx.x;
-  const int r0 = blockIdx.y * kRowsPerBlock;
-  const int nr = min(kRowsPerBlock, r - r0);
-  const long long src = offs[t];
-  const long long dst = offs[steps - 1 - t];
-  if (!kmh_probe::inside(src, r, rows) || !kmh_probe::inside(dst, r, rows)) {
-    return;  // the whole block
+  const int lane = threadIdx.x % kWarp;
+  const long long j0 =  // the warp's first row
+      (static_cast<long long>(blockIdx.x) * (kBlock / kWarp) +
+       threadIdx.x / kWarp) * kWarp;
+  if (j0 >= rows) return;  // the whole warp
+  // the row of x that row j0 + lane of out takes, or -1: zeros
+  long long src = -1;
+  if (j0 + lane < rows) {
+    const int t = owner[j0 + lane];
+    if (t >= 0) src = offs[t] + (j0 + lane - offs[steps - 1 - t]);
   }
-  const long long lo = dst + r0;  // this block's first row of out
-  for (int i = threadIdx.x; i < nr; i += kBlock) mine[i] = owner[lo + i] == t;
-  __syncthreads();
-  const uint4* s4 = x + (src + r0) * kRowVec;
-  uint4* d4 = out + lo * kRowVec;
-#pragma unroll 4
-  for (int j = threadIdx.x; j < nr * kRowVec; j += kBlock) {
-    if (mine[j / kRowVec]) d4[j] = s4[j];
+  const int nr = rows - j0 < kWarp ? static_cast<int>(rows - j0) : kWarp;
+  for (int b = 0; b < nr; b += kBatch) {
+    uint4 v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const long long s = __shfl_sync(0xffffffffu, src, b + u);
+      v[u] = make_uint4(0, 0, 0, 0);
+      if (b + u < nr && s >= 0) v[u] = __ldg(x + s * kRowVec + lane);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (b + u < nr) out[(j0 + b + u) * kRowVec + lane] = v[u];
+    }
   }
 }
 
 }  // namespace
 
 // Launches P5 on `stream` of `device`: x and out ([rows, 128] 32-bit
-// elements, 16-byte aligned, out zero-filled by the caller), offs (`steps`
-// int32 row offsets), r rows per copy, owner (`rows` int32, filled with -1 by
-// the caller). Returns the CUDA error of the launch, 0 on success.
+// elements, 16-byte aligned; the kernel writes every row of out), offs
+// (`steps` int32 row offsets), r rows per copy, owner (`rows` int32, filled
+// with -1 by the caller). Returns the CUDA error of the launches, 0 on
+// success.
 extern "C" int kmh_probe_dyn_copy_2d(const void* x, long long rows,
                                      const void* offs, int steps, int r,
                                      void* owner, void* out, int device,
                                      void* stream) {
   if (rows < 0 || steps < 0 || r < 1 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      !kmh_probe::owner_grid_fits(steps, r)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int chunks = (r + kRowsPerBlock - 1) / kRowsPerBlock;
-  if (chunks > 65535 || !kmh_probe::owner_grid_fits(steps, r)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (steps == 0) return 0;
+  if (rows == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = kmh_probe::launch_owner(rows, static_cast<const int*>(offs), steps, r,
-                                static_cast<int*>(owner), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned int>(steps),
-                  static_cast<unsigned int>(chunks));
-  dyn_copy_2d_kernel<<<grid, kBlock, 0, s>>>(
+  if (steps > 0) {
+    err = kmh_probe::launch_owner(rows, static_cast<const int*>(offs), steps,
+                                  r, static_cast<int*>(owner), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long warps = (rows + kWarp - 1) / kWarp;
+  const long long blocks = (warps + kBlock / kWarp - 1) / (kBlock / kWarp);
+  dyn_copy_2d_kernel<<<static_cast<unsigned int>(blocks), kBlock, 0, s>>>(
       static_cast<const uint4*>(x), rows, static_cast<const int*>(offs), steps,
-      r, static_cast<const int*>(owner), static_cast<uint4*>(out));
+      static_cast<const int*>(owner), static_cast<uint4*>(out));
   return static_cast<int>(cudaGetLastError());
 }

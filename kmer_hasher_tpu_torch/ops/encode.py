@@ -153,8 +153,13 @@ def drop_trailing_mask(ascii_u8: torch.Tensor, k: int,
     [B, L] with one length per row. Applied after the B1 kernel, which
     does not know the quirk."""
     L = ascii_u8.shape[-1]
-    tl = torch.as_tensor(true_len, dtype=torch.int64, device=ascii_u8.device)
     idx = torch.arange(L, dtype=torch.int64, device=ascii_u8.device)
+    # a scalar from the host stays a host 0-d tensor: ops on the card take
+    # it as an operand and indexing reads it on the host, so nothing is
+    # uploaded and the host does not wait for the card
+    host = ascii_u8.dim() == 1 and not isinstance(true_len, torch.Tensor)
+    tl = torch.as_tensor(true_len, dtype=torch.int64,
+                         device="cpu" if host else ascii_u8.device)
     a = (tl - k).clamp(0, L - 1)
     prev_at = (a - 1).clamp(0, L - 1)
     if ascii_u8.dim() == 1:

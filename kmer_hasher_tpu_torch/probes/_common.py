@@ -40,6 +40,7 @@ def card_line(dev: torch.device) -> str:
 
 
 WARMUP, REPEATS, ITERS = 2, 5, 10  # of a timing on a card
+PROFILE_WINDOWS = 3  # profiler windows of which device_ms takes the median
 
 
 def timeit(fn: Callable[[], object], dev: torch.device, iters: int = ITERS
@@ -106,7 +107,14 @@ def device_profile(fn: Callable[[], object], iters: int) -> dict:
     """What ``iters`` calls of ``fn`` put on the card, from the kernel,
     copy and fill durations that ``torch.profiler`` records: name ->
     (activities per call, milliseconds per call). Empty where the trace
-    holds no device time."""
+    holds no device time.
+
+    In a process that has traced many windows, the profiler can lose the
+    records of a call or two of a window (seen on an H100: 8 of 10 calls
+    recorded). A call of ``fn`` runs the same activities every time, so
+    each name's count per call is taken as the nearest whole number and
+    its time as that many times the mean of the records kept; a name seen
+    in fewer than half the calls is not ``fn``'s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -121,16 +129,23 @@ def device_profile(fn: Callable[[], object], iters: int) -> dict:
         if e.device_type == DeviceType.CUDA:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    return {name: (n / iters, us * 1e-3 / iters)
-            for name, (n, us) in by_name.items()}
+    out = {}
+    for name, (n, us) in by_name.items():
+        per_call = round(n / iters)
+        if per_call:
+            out[name] = (per_call, us * 1e-3 / n * per_call)
+    return out
 
 
 def device_ms(fn: Callable[[], object], iters: int) -> Optional[float]:
     """Device milliseconds per call of ``fn``: the summed durations of
     everything its calls ran on the card (:func:`device_profile`), whatever
-    the host took to launch them; None where the trace holds no device
-    time."""
-    return _total_ms(device_profile(fn, iters))
+    the host took to launch them; the median over PROFILE_WINDOWS profiler
+    windows, since in a long process a window can come back empty or short
+    of records; None where every trace holds no device time."""
+    totals = [t for t in (_total_ms(device_profile(fn, iters))
+                          for _ in range(PROFILE_WINDOWS)) if t is not None]
+    return statistics.median(totals) if totals else None
 
 
 def _total_ms(prof: dict) -> Optional[float]:

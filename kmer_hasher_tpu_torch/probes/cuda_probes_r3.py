@@ -98,8 +98,10 @@ def _rows_and_offsets(what: str, x: torch.Tensor, offs: torch.Tensor,
 
 def dyn_copy_2d(x: torch.Tensor, offs: torch.Tensor, r: int) -> torch.Tensor:
     """P5: for t = 0..T-1 in order, rows ``offs[t] : +r`` of ``x``
-    [rows, 128] to rows ``offs[T-1-t] : +r`` of a zero-filled output of
-    ``x``'s shape; offsets in [0, rows - r]."""
+    [rows, 128] to rows ``offs[T-1-t] : +r`` of an output of ``x``'s shape
+    that starts as zeros; offsets in [0, rows - r]. On the card the kernel
+    writes each row of the output once, from the last step that writes it
+    or zeros, so the output is never zero-filled first."""
     r = int(r)
     if r < 1:
         raise ValueError("r must be at least 1")
@@ -108,18 +110,17 @@ def dyn_copy_2d(x: torch.Tensor, offs: torch.Tensor, r: int) -> torch.Tensor:
         return plain_dyn_copy_2d(x, offs, r)
     _check(x, "x", x.device)
     _check(offs, "offs", x.device)
-    out = torch.zeros_like(x)
+    # no zero fill: the kernel writes every row, zeros where no step does
+    out = torch.empty_like(x)
     if x.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("x must start on a 16-byte boundary")
-    if offs.shape[0]:
-        # per row of the output, the last step that writes it: the kernel's
-        # first pass fills it, its second copies by it
-        owner = torch.full((x.shape[0],), -1, dtype=torch.int32,
-                           device=x.device)
-        _launch(dyn_copy_2d, "kmh_probe_dyn_copy_2d",
-                [_P, _LL, _P, _I, _I, _P, _P, _I, _P], x.device, x.data_ptr(),
-                x.shape[0], offs.data_ptr(), int(offs.shape[0]), r,
-                owner.data_ptr(), out.data_ptr())
+    # per row of the output, the last step that writes it: the kernel's
+    # first pass fills it, its second copies by it
+    owner = torch.full((x.shape[0],), -1, dtype=torch.int32, device=x.device)
+    _launch(dyn_copy_2d, "kmh_probe_dyn_copy_2d",
+            [_P, _LL, _P, _I, _I, _P, _P, _I, _P], x.device, x.data_ptr(),
+            x.shape[0], offs.data_ptr(), int(offs.shape[0]), r,
+            owner.data_ptr(), out.data_ptr())
     return out
 
 

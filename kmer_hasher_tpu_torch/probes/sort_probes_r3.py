@@ -213,7 +213,7 @@ def r2_dyn_dma_2d(n: int, r: int, dev: torch.device, card: str) -> dict:
         gbs = 2 * 4 * steps * r * cp3.COLS / dt / 1e9
         _report(f"R2 2-D dyn-copy rows/copy={r} steps={steps}: ok={ok} "
                 f"({written} of {rows} rows written) {dt * 1e3:.4f} ms "
-                f"({gbs:.0f} GB/s, the zero-fill of the output included)",
+                f"({gbs:.0f} GB/s, the owner pass included)",
                 ok, card)
         out[name] = {"ok": ok, "steps": steps, "ms": dt * 1e3, "gbs": gbs,
                      "rows_written": written}

@@ -67,6 +67,137 @@ def test_b1_kernel_batch_matches_plain(cuda, k):
     assert torch.equal(key, pk) and torch.equal(valid, pv)
 
 
+KS_EDGE = [1, 2, 15, 16, 17, 31, 32]
+TILE = cuda_encode.TILE
+
+
+def n_at_tile_edges(seq, L):
+    """N at every tile's first and last byte and in the next tile's halo
+    (the 31 bytes after a tile that its last windows read)."""
+    for e in range(TILE, L, TILE):
+        for d in (-1, 0, 1, 30):
+            if 0 <= e + d < L:
+                seq[e + d] = ord("N")
+    return seq
+
+
+@pytest.mark.parametrize("off", [1, 3, 15])
+@pytest.mark.parametrize("k", KS_EDGE)
+def test_b1_unaligned_start_matches_plain(cuda, k, off):
+    """A 1-D view at byte offset 1, 3 or 15 of its allocation, with N at
+    the tile edges; a length short of the end, and the whole."""
+    rng = np.random.default_rng(10 * k + off)
+    L = 3 * TILE + 77
+    buf = np.full(L + 32, ord("N"), np.uint8)
+    buf[off: off + L] = n_at_tile_edges(random_seq(rng, L, 4), L)
+    seq = torch.from_numpy(buf).to(cuda)[off: off + L]
+    assert seq.data_ptr() % 16 == off
+    for tl in (L - 5, L):
+        key, valid = cuda_encode.encode(seq, k, tl)
+        pk, pv = cuda_encode.plain(seq, k, tl)
+        assert torch.equal(key, pk) and torch.equal(valid, pv)
+        assert bool(valid.any())
+
+
+@pytest.mark.parametrize("how", ["list", "numpy", "cpu tensor",
+                                 "cuda int64"])
+@pytest.mark.parametrize("k", KS_EDGE)
+def test_b1_counting_batch_matches_plain(cuda, k, how):
+    """The counting batch's shape [29,696, 151], per-row lengths 0, k-1,
+    k, 151 and random, given every way a caller gives them."""
+    rng = np.random.default_rng(700 + k)
+    B, L = 29_696, 151
+    seq = rng.choice(np.frombuffer(b"ACGTacgtN", np.uint8), size=(B, L))
+    lengths = rng.integers(0, L + 1, size=B)
+    lengths[:4] = (0, k - 1, k, L)
+    true_len = {"list": lengths.tolist(), "numpy": lengths.astype(np.int32),
+                "cpu tensor": torch.from_numpy(lengths),
+                "cuda int64": torch.from_numpy(lengths).to(cuda)}[how]
+    x = torch.from_numpy(seq).to(cuda)
+    key, valid = cuda_encode.encode(x, k, true_len)
+    pk, pv = cuda_encode.plain(x, k, torch.from_numpy(lengths).to(cuda))
+    assert torch.equal(key, pk) and torch.equal(valid, pv)
+
+
+@pytest.mark.parametrize("row_len", [TILE - 1, TILE, TILE + 1])
+@pytest.mark.parametrize("k", KS_EDGE)
+def test_b1_rows_around_the_tile_match_plain(cuda, k, row_len):
+    """Rows one below, at and one above the kernel's tile, with N at the
+    tile edges, per-row lengths and one length for every row."""
+    rng = np.random.default_rng(800 + k + row_len)
+    B = 5
+    flat = n_at_tile_edges(random_seq(rng, B * row_len, 6), B * row_len)
+    x = torch.from_numpy(flat.reshape(B, row_len)).to(cuda)
+    lengths = np.array([row_len, 0, k - 1, k, row_len - 3])
+    for tl in (torch.from_numpy(lengths).to(cuda), row_len - 2):
+        key, valid = cuda_encode.encode(x, k, tl)
+        pk, pv = cuda_encode.plain(x, k, tl)
+        assert torch.equal(key, pk) and torch.equal(valid, pv)
+
+
+@pytest.mark.parametrize("L", [1, 5, 15, 17])
+@pytest.mark.parametrize("k", [1, 16, 32])
+def test_b1_short_rows_match_plain(cuda, k, L):
+    """Rows shorter than a 16-byte chunk or than k: several rows in one
+    chunk, the row found by division on every thread; from an aligned
+    start and from byte offset 3, with per-row lengths (0, k - 1, k, L and
+    random) and with one length for every row."""
+    rng = np.random.default_rng(900 + 40 * k + L)
+    B = 1000
+    flat = random_seq(rng, B * L + 3, 20)
+    lengths = rng.integers(0, L + 1, size=B)
+    lengths[:4] = (0, min(k - 1, L), min(k, L), L)
+    for off in (0, 3):
+        x = torch.from_numpy(flat).to(cuda)[off: off + B * L].view(B, L)
+        assert x.data_ptr() % 16 == off
+        for tl in (lengths, torch.from_numpy(lengths).to(cuda), L, L - 1):
+            key, valid = cuda_encode.encode(x, k, tl)
+            pk, pv = cuda_encode.plain(x, k, torch.as_tensor(tl, device=cuda))
+            assert torch.equal(key, pk) and torch.equal(valid, pv)
+
+
+@pytest.mark.parametrize("off", [0, 3, 15])
+@pytest.mark.parametrize("k", [1, 16, 32])
+def test_b1_short_stream_matches_plain(cuda, k, off):
+    """1-D inputs of 1 to 20 bytes at byte offset 0, 3 or 15: one chunk
+    across both ends of the stream, inputs shorter than k; the whole
+    length and two bytes short of it."""
+    rng = np.random.default_rng(950 + 20 * k + off)
+    buf = torch.from_numpy(random_seq(rng, 64, 1)).to(cuda)
+    for n in range(1, 21):
+        seq = buf[off: off + n]
+        assert seq.data_ptr() % 16 == off
+        for tl in (n, max(n - 2, 0)):
+            key, valid = cuda_encode.encode(seq, k, tl)
+            pk, pv = cuda_encode.plain(seq, k, tl)
+            assert torch.equal(key, pk) and torch.equal(valid, pv), (n, tl)
+
+
+def test_b1_and_trailing_mask_never_wait_for_the_card(cuda):
+    """With a scalar length, or per-row lengths from the host, neither B1's
+    wrapper nor drop_trailing_mask makes the host wait for the stream:
+    PyTorch's sync debug mode raises on any synchronising call."""
+    from kmer_hasher_tpu_torch.ops import encode as enc
+
+    rng = np.random.default_rng(990)
+    seq = torch.from_numpy(random_seq(rng, 5000)).to(cuda)
+    batch = seq[:4800].view(32, 150)
+    lengths = rng.integers(0, 151, size=32).astype(np.int32)
+    cuda_encode.encode(seq, 21, 4990)  # built and loaded beforehand
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        key, valid = cuda_encode.encode(seq, 21, 4990)
+        bkey, bvalid = cuda_encode.encode(batch, 21, lengths)
+        mask = enc.drop_trailing_mask(seq, 21, 4990)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(mask.cpu(), enc.drop_trailing_mask(seq.cpu(), 21,
+                                                          4990))
+    pk, pv = cuda_encode.plain(batch, 21, torch.from_numpy(lengths).to(cuda))
+    assert torch.equal(bkey, pk) and torch.equal(bvalid, pv)
+
+
 def test_b1_rejects_non_contiguous(cuda):
     seq = torch.zeros((8, 64), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
@@ -639,6 +770,29 @@ def test_p5_kernel_matches_plain(cuda, case):
         xs.cpu(), os_.cpu(), r))
     if case != "outside":
         assert bool(got.any())
+
+
+@pytest.mark.parametrize("rows", [33, 4096, 5000])
+def test_p5_writes_zeros_on_dirty_memory(cuda, rows):
+    """Rows no step writes come out zero though the output is not
+    zero-filled: each call comes right after a tensor of the same size full
+    of -1 was freed, so the caching allocator hands that block out again.
+    Three windows of rows // 7 rows leave rows unowned; no step at all
+    leaves every row so."""
+    rng = np.random.default_rng(rows)
+    x = dev32(rng.integers(0, 2 ** 32, size=(rows, 128), dtype=np.uint32),
+              cuda)
+    r = rows // 7
+    offs = rng.integers(0, rows - r + 1, size=3).astype(np.int32)
+    assert (sort_probes_r3.sequential_source_rows(rows, offs, r) < 0).any()
+    offs = torch.from_numpy(offs).to(cuda)
+    for o in (offs, offs[:0]):
+        dirty = torch.full_like(x, -1)
+        del dirty
+        got = cuda_probes_r3.dyn_copy_2d(x, o, r)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cuda_probes_r3.plain_dyn_copy_2d(x, o, r))
+    assert not bool(got.any())
 
 
 @pytest.mark.parametrize("n_rec", [1, 7, 8, 4096, 10_001])
