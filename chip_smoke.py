@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the position-index path
-(also through the merge sort behind KMH_MERGE_SORT=1), the quality-filtered
+(also through the merge sort behind KMH_MERGE_SORT=1, and sharded by key
+hash over 8 logical shards), the quality-filtered
 counting path (also into 8 key-hash shards), the per-base-threshold
 entries, the sort-design probes of both rounds and the DMA probes, the
 count store's spill regime with its ranged out-of-core fold, and the
@@ -17,7 +18,10 @@ is nonzero:
              starts 1, 3 and 15 bytes off the 16-byte boundary, the counting
              batch [29,696, 151] with lengths 0, k-1, k, 151 and ragged from
              the card and from the host, rows of the tile -1, the tile and
-             the tile +1, N at tile edges and in the halo), B2
+             the tile +1, N at tile edges and in the halo, and the sharded
+             index's build batches: 8 chunks of 2^23 of 40,000,000 bases
+             and 8 of 16 of 40 bases, each with its halo, rows past the end
+             with lengths <= 0), B2
              (quality-likelihood FSM, three
              instantiations; also on the edges of its warp tiling: rows no
              multiple of 32, rows shorter than, equal to and a multiple of
@@ -46,6 +50,16 @@ is nonzero:
 4. main (index) — make_kmer_hash(k=32) of a 40,000,000-base sequence,
              kmer_pos(2|8), the full pair drain, then a k=21 index and
              seq_kmer_pos with a 1,000,000-base query, with checks;
+   main (sharded index) — ShardedKmerIndex(seq, 32, make_mesh(8)) of the
+             same sequence (chunks of 2^23, one B1 launch a build):
+             tables(2|8) and the full pair drain equal the single index's
+             bitwise, each hash shard holds only its owners' keys,
+             lookup_counts and positions_of of 4,096 sampled keys equal its
+             lookup_range; a k=21 sharded index: seq_kmer_pos of the query
+             in ascending blocks and kmer_pairs_sharded against a sharded
+             index of the query stretch equal the single index's; the k=32
+             build and its range partition under KMH_MERGE_SORT=1 equal
+             the flag-off shards (B3: the merge rounds of the 16 sorts);
    main (merge sort) — build_index_arrays at 2^26 windows for k=32 and
              k=21 with KMH_MERGE_SORT=1, bitwise equal to the flag-off
              result, and the 40,000,000-base make_kmer_hash(k=32) with its
@@ -64,7 +78,8 @@ is nonzero:
              where hybrid flags reads and re-scans them in f64, against
              exact. Kernel launches are counted per path (index, merge-sort
              index, counting, file, threshold, probes, spill, probes_r3,
-             cli, probes_dma, sharded), set to 0 just before each and read
+             cli, probes_dma, sharded, sharded_index), set to 0 just before
+             each and read
              just after, and with them the rows B3 merged;
    main (sharded) — the counting cell's reads through
              ShardedCountStore(21, make_mesh(8)) by the same loop, then
@@ -107,7 +122,9 @@ is nonzero:
              ranges and 5e8 distinct k-mers, and the sliced exact control
              (a second store fed only the keys whose top 10 of 42 bits are
              zero equals the big table's prefix bitwise);
-6. card vs CPU — index tables for k in {16, 21, 32}; counting in all
+6. card vs CPU — index tables for k in {16, 21, 32}; the sharded index
+             of the first 2^22 bases on 8 shards for the same k (shards,
+             splitters, range shards, tables, pair drain); counting in all
              three likelihood modes and a two-source store; a spilled store
              (memory and disk), a ranged fold and a drop-mode
              count_kmers_fq, bitwise; the count verb with --device cpu on a
@@ -122,7 +139,10 @@ is nonzero:
              (torch.profiler) and its host time per call; P10, P1 and P6
              against their library calls in turns;
              build_index_arrays with the flag off and on, the index
-             path, one threshold_scan batch, and the counting rates E2E /
+             path, the sharded index's build beside the single build in
+             turns, its range partition, tables + drain and the device's
+             idle share over a sharded build, one threshold_scan batch, and
+             the counting rates E2E /
              FUSED / FSM with the share of tier merges, of the fold, and
              the device's idle share over the whole 64-batch loop; the
              counting cell through one store and through 8 shards in turns.
@@ -198,6 +218,8 @@ DMA_ROWS, DMA_GATHER_REF_LOG_N = (512, 64, 8), 20
 DIRTY_P5 = "rows no step writes, dirty memory, R=100"  # a case of P5
 # the sharded store: 8 logical shards; card vs CPU on a cut of the cell
 SHARDS, SH_CPU_BATCHES, SH_CPU_ROWS, SH_SPILL = 8, 8, 4096, 1 << 20
+SH_LOOKUPS = 4096  # keys the sharded index's lookups are held on
+SH_CHUNK = 1 << (-(-SEQ_LEN // SHARDS) - 1).bit_length()  # its chunk, 2^23
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 NA = -(2 ** 31)
@@ -328,6 +350,7 @@ def phase_build():
 def phase_kernels(rng):
     """B1 against its plain version on the same CUDA tensors, bitwise."""
     from kmer_hasher_tpu_torch.ops import cuda_encode as b1
+    from kmer_hasher_tpu_torch.parallel.sharded import chunk_rows
 
     dev = torch.device("cuda")
     L = 1 << 26
@@ -392,6 +415,13 @@ def phase_kernels(rng):
                    torch.from_numpy(erng.integers(0, rl + 1, size=64)).to(
                        dev)) for rl, xr in around.items()]
         cases.append(("[2^20], N at the tile edges", edge_1d, (1 << 20) - 3))
+        # the sharded index's build: 8 chunks with their halos, rows past
+        # the end with lengths <= 0, the last rows' halos in the N padding
+        for n, chunk in ((SEQ_LEN, SH_CHUNK), (40, 16)):
+            rows, lengths = chunk_rows(x[:n], SHARDS, chunk, k, dev)
+            cases.append((f"the sharded build's [{SHARDS}, {chunk} + halo] of "
+                          f"{n:,} bases, lengths {lengths.tolist()}", rows,
+                          lengths))
         for what, inp, t in cases:
             key, valid = b1.encode(inp, k, t)
             pk, pv = b1.plain(inp, k, torch.as_tensor(t, device=dev))
@@ -410,7 +440,9 @@ def phase_kernels(rng):
         f"[29,696, 151] with lengths 0, k-1, k, 151 and ragged, from the "
         f"card and from the host; rows of {tile - 1}, {tile} and "
         f"{tile + 1} bytes; N at every tile's first and last byte and in "
-        f"the halo (max_abs_err {worst})")
+        f"the halo; the sharded index's build batches ({SHARDS} chunks of "
+        f"{SH_CHUNK:,} of {SEQ_LEN:,} bases and of 16 of 40 bases: lengths "
+        f"<= 0, halos in the padding) (max_abs_err {worst})")
     # inputs shorter than a chunk or than k: rows of 1-17 bytes (several in
     # one chunk, each thread's row found by division), per-row lengths and
     # one length for every row; 1-D inputs of 1-20 bytes from byte offsets
@@ -555,6 +587,101 @@ def phase_card_vs_cpu(seq: np.ndarray) -> None:
         log(f"[card-vs-cpu] k={k} on 2^22 bases: s_key, s_pos, starts, "
             f"n_valid ({g.n_valid:,}), pos/count tables, {pg.shape[0]:,} "
             f"pair rows{extra} — bitwise equal")
+
+
+def phase_card_vs_cpu_sharded_index(seq: np.ndarray) -> None:
+    """The sharded index of the first 2^22 bases on 8 shards on the card
+    against the same on the CPU, bitwise: hash shards, splitters, range
+    shards, tables(2|8), the pair drain."""
+    from kmer_hasher_tpu_torch.parallel import ShardedKmerIndex, make_mesh
+
+    pre = seq[:PREFIX]
+    for k in (16, 21, 32):
+        g = ShardedKmerIndex(pre, k, make_mesh(SHARDS))
+        c = ShardedKmerIndex(pre, k, make_mesh(SHARDS, device="cpu"))
+        tg, tc = g.tables(2 | 8), c.tables(2 | 8)
+        pg = torch.cat([ch.cpu() for ch in g.iter_pair_chunks()])
+        same = ((g.n_valid == c.n_valid).all()
+                and torch.equal(g._rp_spl.cpu(), c._rp_spl)
+                and all(torch.equal(a.s_key.cpu(), b.s_key)
+                        and torch.equal(a.s_pos.cpu(), b.s_pos)
+                        for a, b in zip(g.shards + g._range_partitioned(),
+                                        c.shards + c._range_partitioned()))
+                and all(torch.equal(tg[f].cpu(), tc[f])
+                        for f in ("pos", "count"))
+                and torch.equal(pg, torch.cat(list(c.iter_pair_chunks()))))
+        if not same:
+            raise AssertionError(f"k={k}: the sharded index differs card vs "
+                                 f"CPU")
+        log(f"[card-vs-cpu] sharded index, k={k}, 2^22 bases on {SHARDS} "
+            f"shards: hash shards ({g.total_kmers:,} windows), splitters, "
+            f"range shards, pos/count tables, {pg.shape[0]:,} pair rows — "
+            f"bitwise equal")
+
+
+def phase_times_sharded_index(seq: np.ndarray, card: str) -> None:
+    """The sharded build and the single build of the index cell's
+    sequence at k=32 in turns (single, sharded, sharded, single, single,
+    sharded: medians of 3), the range partition's seconds, the tables(2|8)
+    + drain wall of a fresh sharded index, and the device's idle share over
+    a sharded build (torch.profiler). Records, not a claim."""
+    from kmer_hasher_tpu_torch import api
+    from kmer_hasher_tpu_torch.parallel import ShardedKmerIndex, make_mesh
+
+    mesh = make_mesh(SHARDS)
+
+    def build(kind):
+        return (api.make_kmer_hash(seq, 32, device="cuda") if kind == "one"
+                else ShardedKmerIndex(seq, 32, mesh))
+
+    build("one"), build("shards")  # warm-up
+    times = {"one": [], "shards": []}
+    for kind in ("one", "shards", "shards", "one", "one", "shards"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ix = build(kind)
+        torch.cuda.synchronize()
+        times[kind].append(time.perf_counter() - t0)
+        del ix
+    sh = build("shards")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh._range_partitioned()
+    torch.cuda.synchronize()
+    t_rp = time.perf_counter() - t0
+    sh.drop_range_partition()
+    t0 = time.perf_counter()
+    sh.tables(2 | 8)
+    n = sum(ch.shape[0] for ch in sh.iter_pair_chunks())
+    torch.cuda.synchronize()
+    t_tab = time.perf_counter() - t0
+    del sh
+    one = build("one")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    api.kmer_pos(one, 2 | 8)
+    sum(ch.shape[0] for ch in one.iter_pair_chunks())
+    torch.cuda.synchronize()
+    t_one_tab = time.perf_counter() - t0
+    del one
+    h_wall, share, top = device_activities(lambda: build("shards"), top=6)
+    med = {kind: statistics.median(v) for kind, v in times.items()}
+    dev = ("not measured (the trace holds no device time)" if share is None
+           else f"device busy {share * h_wall:.4f} s of host {h_wall:.4f} s, "
+           f"idle {1 - share:.1%}")
+    log(f"[times] sharded index, k=32, {SEQ_LEN:,} bases from the host: "
+        f"ShardedKmerIndex on {SHARDS} shards median {med['shards']:.4f} s "
+        f"({', '.join(f'{t:.4f}' for t in times['shards'])}), one "
+        f"make_kmer_hash median {med['one']:.4f} s "
+        f"({', '.join(f'{t:.4f}' for t in times['one'])}), in turns; range "
+        f"partition {t_rp:.4f} s; tables(2|8) + drain of {n:,} pair rows "
+        f"from a fresh index (range partition included) {t_tab:.4f} s, "
+        f"of the single index {t_one_tab:.4f} s; over one sharded build "
+        f"under torch.profiler {dev} | {card}")
+    if top:
+        log(f"[times] sharded index build, the device activities with the "
+            f"most time: " + "; ".join(f"{name} x{n} {ms:.3f} ms"
+                                       for name, n, ms in top) + f" | {card}")
 
 
 def phase_times(seq: np.ndarray, card: str):
@@ -981,6 +1108,151 @@ def phase_main_merge_sort(seq: np.ndarray):
         f"(n_valid {idx.n_valid:,}); {wall:.3f} s; B3 launches "
         f"{launches[2]} = {rounds} rounds x 3 builds (rows of {ms.LT}), "
         f"B1 launches {launches[0]}")
+    return launches
+
+
+def merge_rounds(n: int) -> int:
+    """B3 launches of one sort of ``n`` rows under KMH_MERGE_SORT=1: padded
+    to a power of two N, log2(N / LT) rounds where N >= 2 LT, else none."""
+    from kmer_hasher_tpu_torch.ops import merge_sort as ms
+
+    N = 1 << max(0, (n - 1).bit_length())
+    return (N // ms.LT).bit_length() - 1 if N >= 2 * ms.LT else 0
+
+
+def same_index_shards(a, b) -> bool:
+    return all(torch.equal(x.s_key, y.s_key) and torch.equal(x.s_pos, y.s_pos)
+               for x, y in zip(a, b))
+
+
+def phase_main_sharded_index(seq: np.ndarray):
+    """The sharded position index on 8 logical shards, through the entries
+    a user calls: ShardedKmerIndex(seq, 32, make_mesh(8)) of the index
+    cell's sequence, tables(2|8) and the full pair drain, lookup_counts and
+    positions_of of 4,096 sampled keys; a k=21 sharded index,
+    seq_kmer_pos of the 1,000,000-base query, and kmer_pairs_sharded of it
+    against a sharded index of the query stretch; then the k=32 build and
+    its range partition again under KMH_MERGE_SORT=1. Each is held
+    bitwise against the single KmerIndex (built before the counts are set
+    to 0) or the flag-off shards. Launches counted (path sharded_index):
+    B1 once a build and once a query, B3 only under the flag."""
+    from kmer_hasher_tpu_torch import api
+    from kmer_hasher_tpu_torch.index.query import kmer_pairs
+    from kmer_hasher_tpu_torch.ops import encode as enc
+    from kmer_hasher_tpu_torch.parallel import (ShardedKmerIndex,
+                                                kmer_pairs_sharded, make_mesh,
+                                                owner_hash)
+
+    mesh = make_mesh(SHARDS)
+    query = seq[QUERY_AT: QUERY_AT + QUERY_LEN]
+    # the single indexes and their answers, before the counts are set to 0
+    one = api.make_kmer_hash(seq, 32, device="cuda")
+    one_tabs = api.kmer_pos(one, 2 | 8)
+    one_pairs = torch.cat(list(one.iter_pair_chunks()))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    pick = torch.randint(0, one.n_valid, (SH_LOOKUPS,), generator=gen,
+                         device="cuda")
+    q = torch.unique(enc.sortable_key(one.s_key[pick]))
+    lb, ub = one.lookup_range(q)
+    hits = ub - lb
+    g = torch.arange(int(hits.sum()), device="cuda")
+    cum = torch.cumsum(hits, 0)
+    w = torch.searchsorted(cum, g, right=True)
+    one_positions = torch.sort(one.s_pos[lb[w] + g - (cum[w] - hits[w])]).values
+    one21 = api.make_kmer_hash(seq, 21, device="cuda")
+    one_rows = api.seq_kmer_pos(one21, query, 21)
+    one_xpairs = kmer_pairs(one21, api.make_kmer_hash(query, 21,
+                                                      device="cuda"))
+    del one21
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    sh = ShardedKmerIndex(seq, 32, mesh)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    tabs = sh.tables(2 | 8)
+    chunks = list(sh.iter_pair_chunks())
+    counts = sh.lookup_counts(q)
+    positions = sh.positions_of(q)
+    sh21 = ShardedKmerIndex(seq, 21, mesh)
+    blocks = list(sh21.iter_seq_kmer_pos(query, 21))
+    shq = ShardedKmerIndex(query, 21, mesh)
+    xpairs = kmer_pairs_sharded(sh21, shq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    before = os.environ.get("KMH_MERGE_SORT")
+    try:
+        os.environ["KMH_MERGE_SORT"] = "1"
+        flagged = ShardedKmerIndex(seq, 32, mesh)
+        flagged_rp = flagged._range_partitioned()
+        torch.cuda.synchronize()
+    finally:
+        if before is None:
+            del os.environ["KMH_MERGE_SORT"]
+        else:
+            os.environ["KMH_MERGE_SORT"] = before
+    launches = read_launches("sharded_index")
+
+    if sh.device.type != "cuda" or any(s.s_key.device.type != "cuda"
+                                       for s in sh.shards):
+        raise AssertionError("the sharded index does not live on the card")
+    if sh.total_kmers != one.n_valid or sh.chunk != SH_CHUNK:
+        raise AssertionError(f"sharded index: {sh.total_kmers} windows in "
+                             f"chunks of {sh.chunk}, single {one.n_valid}")
+    for d, s in enumerate(sh.shards):
+        raw = enc.sortable_key(s.s_key)
+        if not bool((owner_hash(*enc.split_hi_lo(raw), SHARDS) == d).all()):
+            raise AssertionError(f"hash shard {d} holds another's keys")
+    for f in ("pos", "count"):
+        if not torch.equal(tabs[f], one_tabs[f]):
+            raise AssertionError(f"sharded tables(2|8): {f} differs from the "
+                                 f"single index's")
+    drained = torch.cat(chunks)
+    if not torch.equal(drained, one_pairs):
+        raise AssertionError("the sharded pair drain differs from the single "
+                             "index's")
+    if not (torch.equal(counts.long(), hits)
+            and torch.equal(positions, one_positions)):
+        raise AssertionError("lookup_counts or positions_of differ from the "
+                             "single index's lookup_range")
+    rows = torch.cat(blocks)
+    keys = (rows[:, 0].long() << 32) | rows[:, 1].long()
+    if not (torch.equal(rows, one_rows) and bool((keys[1:] >= keys[:-1]).all())):
+        raise AssertionError("sharded seq_kmer_pos differs from the single "
+                             "index's, or its blocks do not ascend")
+    if not torch.equal(xpairs, one_xpairs):
+        raise AssertionError("kmer_pairs_sharded differs from kmer_pairs")
+    if not (same_index_shards(flagged.shards, sh.shards)
+            and same_index_shards(flagged_rp, sh._range_partitioned())):
+        raise AssertionError("KMH_MERGE_SORT=1: the sharded index differs")
+    rounds = sum(merge_rounds(s.n_valid) for s in flagged.shards + flagged_rp)
+    builds, queries = 4, 1
+    if launches[0] != builds + queries or launches[2] != rounds:
+        raise AssertionError(
+            f"the sharded index path launched B1 {launches[0]} times (want "
+            f"one a build, {builds}, and one a query, {queries}) and B3 "
+            f"{launches[2]} (want {rounds} merge rounds under the flag)")
+    log(f"[main] sharded index: ShardedKmerIndex(k=32, make_mesh({SHARDS})) "
+        f"of {SEQ_LEN:,} bases, chunks of {sh.chunk:,}: shards of "
+        f"{', '.join(f'{n:,}' for n in sh.n_valid)} windows, each holding "
+        f"only keys whose owner_hash is its own; tables(2|8) "
+        f"({sh.n_kmers:,} distinct) and the drain of {drained.shape[0]:,} "
+        f"pair rows in {len(chunks)} chunks equal the single index's "
+        f"bitwise; lookup_counts and positions_of of {q.shape[0]:,} "
+        f"sampled keys ({positions.shape[0]:,} positions) equal its "
+        f"lookup_range; k=21: seq_kmer_pos of the {QUERY_LEN:,}-base query, "
+        f"{rows.shape[0]:,} rows in {len(blocks)} ascending blocks, and "
+        f"kmer_pairs_sharded against the query stretch's sharded index, "
+        f"{xpairs.shape[0]:,} rows, equal the single index's; build "
+        f"{t_build:.3f} s, all {wall:.3f} s; with KMH_MERGE_SORT=1 the k=32 "
+        f"hash and range shards are bitwise the flag-off ones")
+    log(f"[main] sharded index: B1 launches {launches[0]} = one a build "
+        f"({builds}) + one a query ({queries}), "
+        f"{B1_POSITIONS['sharded_index']:,} window starts encoded; B3 "
+        f"launches {launches[2]} = the merge rounds of the 16 shard sorts "
+        f"under the flag, {B3_ROWS['sharded_index']:,} rows")
     return launches
 
 
@@ -1440,6 +1712,13 @@ def device_busy_share(fn):
     once; share None if the trace holds no device time. (Summing
     ``key_averages()`` would count each kernel that a PyTorch operator
     launches twice, once under the operator and once as itself.)"""
+    return device_activities(fn)[:2]
+
+
+def device_activities(fn, top: int = 0):
+    """:func:`device_busy_share`'s (host seconds, busy share) and the
+    ``top`` device activities of ``fn`` with the most time, as (name cut to
+    70 characters, calls, device ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1450,9 +1729,15 @@ def device_busy_share(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA)
-    return wall, (busy_us * 1e-6 / wall if busy_us > 0 else None)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_us = sum(us for _, us in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return (wall, busy_us * 1e-6 / wall if busy_us > 0 else None,
+            [(name[:70], n, us * 1e-3) for name, (n, us) in ranked])
 
 
 def phase_times_counting(batches, card: str, main_stats: dict):
@@ -2986,10 +3271,11 @@ def bound(bytes_moved: float, ops: float):
 
 
 PATHS = ("index", "merge_sort_index", "counting", "file", "threshold",
-         "probes", "spill", "probes_r3", "cli", "probes_dma", "sharded")
+         "probes", "spill", "probes_r3", "cli", "probes_dma", "sharded",
+         "sharded_index")
 # the paths whose B3 launches are rounds of a merge sort (32-bit payload),
 # not two-run merges of the count store (implicit payload)
-SORT_ROUND_PATHS = ("merge_sort_index", "probes_dma")
+SORT_ROUND_PATHS = ("merge_sort_index", "probes_dma", "sharded_index")
 
 
 def main() -> None:
@@ -3024,6 +3310,7 @@ def main() -> None:
     if launches["index"][2]:
         raise AssertionError("the index path launched B3 with the flag off")
     launches["merge_sort_index"] = phase_main_merge_sort(seq)
+    launches["sharded_index"] = phase_main_sharded_index(seq)
     gen.manual_seed(SEED)
     genome = make_genome(gen)
     batches = [draw_reads(genome, gen, ROWS) for _ in range(N_BATCHES)]
@@ -3052,8 +3339,10 @@ def main() -> None:
     b3_rows = {p: B3_ROWS[p] for p in PATHS}
     swept = phase_hybrid_full_width(rng)
     phase_card_vs_cpu(seq)
+    phase_card_vs_cpu_sharded_index(seq)
     phase_card_vs_cpu_counting(genome, batches)
     b1_rows = phase_times(seq, card)
+    phase_times_sharded_index(seq, card)
     b3_times = phase_times_merge(cases, card)
     log(f"[times] merge_runs of two runs at the store shape peaks at "
         f"{merge_peak_factor(cases['store']):.2f} x its inputs' bytes in "

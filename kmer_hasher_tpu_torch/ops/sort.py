@@ -21,11 +21,11 @@ package's other TPU-only merge paths (``bitonic_merge_lanes``,
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from .encode import sortable_key
+from .encode import SIGN, sortable_key
 
 _I32_MIN = torch.iinfo(torch.int32).min  # bit 31 of a 32-bit lane
 
@@ -36,7 +36,8 @@ def _use_merge_sort() -> bool:
     return os.environ.get("KMH_MERGE_SORT", "0") == "1"
 
 
-def _sort_windows_merge(key: torch.Tensor, valid: torch.Tensor, k: int
+def _sort_windows_merge(key: torch.Tensor, valid: torch.Tensor, k: int,
+                        pos: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`sort_windows` as one lexicographic (key, payload) sort through
     ``merge_sort.sort_kmers_merge``, with the JAX package's two payloads:
@@ -44,30 +45,47 @@ def _sort_windows_merge(key: torch.Tensor, valid: torch.Tensor, k: int
     k == 32, where a real all-G 32-mer shares the all-ones key with the
     invalid windows (hence the unsigned payload compare). As there, the
     flag is tested before the packed k <= 16 form, so a k <= 16 index takes
-    the k <= 31 tail under the flag: ascending positions, raw all-ones."""
+    the k <= 31 tail under the flag: ascending positions, raw all-ones.
+
+    An input whose length is no power of two (a shard of the sharded
+    index) is padded to one with rows that sort after every other, the
+    all-ones key with the all-ones payload, and cut back after the sort:
+    the JAX package sorts such a shard at its power-of-two capacity."""
     from . import merge_sort as ms
 
-    pos = torch.arange(1, key.shape[0] + 1, dtype=torch.int32,
-                       device=key.device)
     pay = pos if k <= 31 else torch.where(valid, pos, pos | _I32_MIN)
-    s_key, s_pay = ms.sort_kmers_merge(
-        sortable_key(torch.where(valid, key, -1)), pay)
+    s_key = sortable_key(torch.where(valid, key, -1))
+    n = key.shape[0]
+    n_pad = 1 << max(0, (n - 1).bit_length())
+    if n_pad != n and n_pad >= 2 * ms.LT:
+        s_key = torch.cat([s_key, s_key.new_full((n_pad - n,), -1 ^ SIGN)])
+        pay = torch.cat([pay, pay.new_full((n_pad - n,), -1)])
+    s_key, s_pay = ms.sort_kmers_merge(s_key, pay)
+    s_key, s_pay = s_key[:n], s_pay[:n]
     return s_key, s_pay if k <= 31 else s_pay & 0x7FFFFFFF
 
 
-def sort_windows(key: torch.Tensor, valid: torch.Tensor, k: int
+def sort_windows(key: torch.Tensor, valid: torch.Tensor, k: int,
+                 pos: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort windows by (validity, k-mer, position) along the last axis:
     valid entries first, keys ascending, positions ascending within a key
     (the reference's insertion order). Returns (s_key, s_pos): sortable
     keys and int32 1-based window starts.
 
+    ``pos`` gives each window its int32 1-based position (the routed rows
+    of a shard of the sharded index carry their global ones); by default
+    window i is at i + 1. At k <= 31 the sort is stable on the key, so a
+    key's positions come out in input order: ascending where the input is
+    in position order, as routed rows are (sender by sender, each in window
+    order).
+
     Three key forms, as in the JAX package, which fix the invalid tail:
 
     * k <= 16: k-mer and position packed in one word, invalid all-ones —
       the tail reads raw 0xFFFFFFFF, position 0x7FFFFFFF;
     * k <= 31: the k-mer alone, invalid all-ones, stable, so positions
-      stay ascending — the tail keeps ascending positions;
+      stay in input order;
     * k == 32: the k-mer fills 64 bits, so a real all-G 32-mer shares the
       all-ones sentinel with invalid windows; a second key (invalid flag,
       then position) breaks the tie. Done as a stable LSD pair: order by
@@ -76,22 +94,29 @@ def sort_windows(key: torch.Tensor, valid: torch.Tensor, k: int
     With ``KMH_MERGE_SORT=1`` a 1-D input takes
     :func:`_sort_windows_merge` instead; a [B, L] batch ignores the flag.
     """
+    implicit = pos is None
+    if implicit:
+        pos = torch.arange(1, key.shape[-1] + 1, dtype=torch.int32,
+                           device=key.device)
+    pos = pos.to(torch.int32).expand_as(key)
     if key.dim() == 1 and _use_merge_sort():
-        return _sort_windows_merge(key, valid, k)
-    L = key.shape[-1]
-    pos = torch.arange(1, L + 1, dtype=torch.int64, device=key.device)
+        return _sort_windows_merge(key, valid, k, pos)
     if k <= 16:
-        packed = torch.where(valid, (key << 32) | pos, -1)
+        packed = torch.where(valid, (key << 32) | pos.to(torch.int64), -1)
         s = sortable_key(torch.sort(sortable_key(packed), dim=-1).values)
         s_key = sortable_key((s >> 32) & 0xFFFFFFFF)
         return s_key, (s & 0x7FFFFFFF).to(torch.int32)
     k1 = sortable_key(torch.where(valid, key, -1))
     if k <= 31:
         s_key, order = torch.sort(k1, dim=-1, stable=True)
-        return s_key, (order + 1).to(torch.int32)
-    by_k2 = torch.sort((~valid).to(torch.int8), dim=-1, stable=True).indices
+        return s_key, pos.gather(-1, order)
+    # by default positions ascend with the index, so the invalid flag alone
+    # orders the second key
+    k2 = (~valid).to(torch.int8) if implicit else (
+        pos.to(torch.int64) | torch.where(valid, 0, 1 << 31))
+    by_k2 = torch.sort(k2, dim=-1, stable=True).indices
     s_key, order = torch.sort(k1.gather(-1, by_k2), dim=-1, stable=True)
-    return s_key, (by_k2.gather(-1, order) + 1).to(torch.int32)
+    return s_key, pos.gather(-1, by_k2.gather(-1, order))
 
 
 def segment_starts(s_key: torch.Tensor, live: torch.Tensor) -> torch.Tensor:

@@ -1,48 +1,66 @@
-"""The sharded count store (PyTorch port of ``ShardedCountStore`` in
+"""The sharded count store and the sharded position index (PyTorch port of
+``ShardedCountStore`` and ``ShardedKmerIndex`` in
 ``kmer_hasher_tpu/parallel/sharded.py``).
 
-Canonical k-mer counting sharded by key hash: every k-mer has one owner
-shard, :func:`owner_hash` of its key, and each shard is a port
+Both shard by key hash: every k-mer has one owner shard, :func:`owner_hash`
+of its key, and :meth:`..parallel.mesh.ShardGroup.exchange` routes rows to
+their owners with one small readback of the D bucket sizes.
+
+The count store: canonical k-mer counting, each shard a port
 :class:`~..index.count_store.CountStore` that holds only its own keys, so
 its LSM tiers merge through kernel B3 and it spills and rejoins its own
 runs through the single store's code (a later rank can hold one whole).
-
 What one batch does (:meth:`ShardedCountStore.add_reads`): the
 single-device ``_fused_rp_batch`` over the whole batch (B2, canonical,
 trim, no-quality rows through B1) gives one run; each key's owner is
-computed; :meth:`..parallel.mesh.ShardGroup.exchange` groups the run's rows
-by owner with one small readback of the D bucket sizes; each shard takes its
-exact-length bucket as a run of its own. Hybrid results equal exact results
-bitwise, so the flagged reads are re-counted exactly before routing.
+computed; each shard takes its exact-length bucket as a run of its own.
+Hybrid results equal exact results bitwise, so the flagged reads are
+re-counted exactly before routing. The shards' tiers merge one shard at a
+time (the JAX store's ``_vmerge_*`` ran them side by side in one program).
 
-Left out of the JAX store, with the reason:
+The position index (:class:`ShardedKmerIndex`): the sequence's D chunks,
+each with a (k-1)-base halo, encoded by kernel B1 in one launch, every
+window routed to its owner and each shard sorted by (k-mer, position);
+the tables from a copy re-sharded by sampled key ranges; queries over
+every shard; :func:`iter_kmer_pairs_sharded_chunks` and
+:func:`kmer_pairs_sharded` across two indexes.
+
+Left out of the JAX module, with the reason:
 
 * the per-destination capacity, its overflow flag and the doubling retry
-  (``_autosize_capacity``, ``_grow_capacity``): buckets here have their
-  exact lengths, so nothing can overflow; ``capacity`` is accepted, kept for
-  the checkpoint's meta blob, and ignored;
-* the program cache (``_LRU``, ``_program``): eager PyTorch compiles no
-  program per shape;
-* ``_global_put``, ``_globalize`` and ``_replicated``: one process holds
-  every shard;
+  (``_autosize_capacity``, ``_grow_capacity``, the index build's and the
+  range partition's retry loops): buckets here have their exact lengths,
+  so nothing can overflow; the store's ``capacity`` is accepted, kept for
+  the checkpoint's meta blob, and ignored, as is the index's
+  ``capacity_factor``;
+* the program cache (``_LRU``, ``_shared_program``): eager PyTorch
+  compiles no program per shape;
+* ``_global_put``, ``_globalize`` and ``_replicated``, and ``_host_read``
+  across processes: one process holds every shard (several processes over
+  ``torch.distributed`` are a later slice);
 * the trim of dead routing slots and key-only runs: a run here is its live
   rows only, as in the port's single store;
-* the allgather of every run on spill: each shard spills only its own rows.
-
-The shards' tiers merge one shard at a time (the JAX store's ``_vmerge_*``
-ran them side by side in one program).
+* the allgather of every run on spill: each shard spills only its own rows;
+* the index's compacted expansion plans (``exp.use_plan``,
+  ``ExpansionPlan``): rows expand by a plain searchsorted over prefix
+  sums, in the same order.
 """
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Sequence
+from typing import (Dict, Iterator, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from ..index import count_store as cs
 from ..index.count_store import CountStore, Run
+from ..index.position_index import (MAX_K, _NUC, _decode_kmers, _group_stats,
+                                    _pair_chunk, _unique_compact, as_sequence)
+from ..index.query import _hit_chunk, _pair_hit_chunk, _pair_ranges, _total
 from ..ops import encode as enc
+from ..ops import sort as srt
 from .mesh import ShardGroup
 
 _M32 = 0xFFFFFFFF
@@ -254,3 +272,497 @@ class ShardedCountStore:
                 keys, cnt = cs.reduce_rows(keys, cnt)
             shard.keys, shard.cnt = keys, cnt
         return self
+
+
+# -- the sharded position index ----------------------------------------------
+
+SAMPLES = 64  # splitter samples a shard takes (the JAX package's S)
+_LAST = (-1) ^ enc.SIGN  # the sortable form of the raw all-ones pattern
+
+
+class Shard(NamedTuple):
+    """One shard of a sharded index: sortable keys and int32 1-based
+    positions in (key, position) order, every row live (so ``n_valid`` is
+    the length; the single index's query helpers take a shard as they
+    take a :class:`~..index.position_index.KmerIndex`)."""
+    s_key: torch.Tensor
+    s_pos: torch.Tensor
+
+    @property
+    def n_valid(self) -> int:
+        return int(self.s_key.shape[0])
+
+
+class _Groups(NamedTuple):
+    """The segment statistics of one range shard: each k-mer's count, the
+    global 1-based k-mer rank of every row, the rows' remaining-pair run
+    lengths and their prefix sum, the segment starts, the number of
+    distinct k-mers and of pairs."""
+    counts: torch.Tensor
+    i_col: torch.Tensor
+    m: torch.Tensor
+    cum_m: torch.Tensor
+    starts: torch.Tensor
+    n_unique: int
+    n_pairs: int
+
+
+def chunk_rows(seq: torch.Tensor, n_shards: int, chunk: int, k: int,
+               device) -> Tuple[torch.Tensor, np.ndarray]:
+    """The sharded build's batch for B1: row d holds chunk d of the uint8
+    sequence ``seq`` padded with N to ``n_shards * chunk`` bases, then the
+    max(1, k-1) bases after it (its right neighbour's first bases; N past
+    the last chunk), [n_shards, chunk + halo] on ``device``; and each row's
+    length on the host, int32: min(len - d * chunk, chunk + halo), zero or
+    less for chunks past the end."""
+    halo = max(1, k - 1)
+    L = int(seq.shape[0])
+    x = torch.full((n_shards * chunk + halo,), ord("N"), dtype=torch.uint8,
+                   device=device)
+    x[:L] = seq
+    lengths = np.minimum(L - np.arange(n_shards, dtype=np.int64) * chunk,
+                         chunk + halo).astype(np.int32)
+    return x.unfold(0, chunk + halo, chunk).contiguous(), lengths
+
+
+def _sort_shard(raw: torch.Tensor, pos: torch.Tensor, k: int) -> Shard:
+    """A shard from routed live rows (raw keys, global positions)."""
+    valid = torch.ones(raw.shape, dtype=torch.bool, device=raw.device)
+    return Shard(*srt.sort_windows(raw, valid, k, pos=pos))
+
+
+def _same_group(a: ShardGroup, b: ShardGroup) -> bool:
+    """Two groups are the same where they lay out as many shards the same
+    way on one device (the JAX package compares meshes by their devices)."""
+    return a is b or (a.size, a.shape, a.device) == (b.size, b.shape,
+                                                     b.device)
+
+
+def _row_keys(rows: torch.Tensor) -> torch.Tensor:
+    """(i, j) rows -> int64 keys in (i, j) order."""
+    return (rows[:, 0].to(torch.int64) << 32) | rows[:, 1].to(torch.int64)
+
+
+def _empty_rows(dev: torch.device) -> torch.Tensor:
+    return torch.zeros((0, 2), dtype=torch.int32, device=dev)
+
+
+class ShardedKmerIndex:
+    """Position index over one sequence, sharded by k-mer hash over the
+    shard group ``mesh`` (PyTorch port of ``ShardedKmerIndex`` in
+    ``kmer_hasher_tpu/parallel/sharded.py``).
+
+    Build: the sequence is cut into D chunks of ``chunk`` bases (the next
+    power of two, at least 16, above len / D; padded with N); the chunks,
+    each with the first max(1, k-1) bases of its right neighbour as a
+    halo, form one [D, chunk + halo] batch that kernel B1 encodes in one
+    launch, each row up to its own length (zero or less for chunks past the
+    end). A window is kept where it starts in its own chunk, is valid, and
+    is not the trailing-exact-k quirk's. Every window goes to the shard
+    :func:`owner_hash` of its raw key names
+    (:meth:`~..parallel.mesh.ShardGroup.exchange`), where the rows are
+    sorted by (k-mer, position). ``shards[d]`` is shard d at its exact
+    length on ``mesh.device``; ``n_valid`` the shards' lengths (int64
+    [D]). Nothing is padded to a capacity: ``capacity_factor`` is accepted
+    and ignored.
+
+    Tables (``kmer_strings``, ``counts``, ``pos_table``, the pair stream)
+    come from a second copy re-sharded by key range
+    (:meth:`_range_partitioned`), emitted shard by shard in key order:
+    they equal the single index's. Queries search every hash shard.
+    Tensors come back on the group's device.
+    """
+
+    def __init__(self, seq, k: int, mesh: ShardGroup,
+                 capacity_factor: float = 2.0,
+                 drop_trailing_exact_k: bool = True):
+        if not 1 <= k <= MAX_K:
+            raise ValueError("k must be in 1..32")
+        seq = as_sequence(seq)
+        if seq.shape[0] <= k:
+            raise ValueError("the length of the sequence must be at least k")
+        self.k = int(k)
+        self.mesh = mesh
+        self.n_shards = D = mesh.size
+        self.device = mesh.device
+        L = self.seq_len = int(seq.shape[0])
+        # the reference drops the final window when its region starts fresh
+        # (src/kmer_pos.c:81-84): the one position it can hit
+        quirk = -1
+        if drop_trailing_exact_k:
+            a = L - k
+            if a == 0 or (seq[a - 1] | 0x20) == ord("n"):
+                quirk = a + 1
+        self._quirk_pos = quirk
+        self.chunk = 1 << max(4, (-(-L // D) - 1).bit_length())
+        self.shards = self._build(seq)
+        self.n_valid = np.array([s.n_valid for s in self.shards], np.int64)
+        self.total_kmers = int(self.n_valid.sum())
+        self.drop_range_partition()
+
+    def _build(self, seq: np.ndarray) -> List[Shard]:
+        k, D, Lc, dev = self.k, self.n_shards, self.chunk, self.device
+        rows, lengths = chunk_rows(torch.from_numpy(seq), D, Lc, k, dev)
+        raw, valid = enc.encode_stream(rows, k, lengths, canonical=False,
+                                       drop_trailing_exact_k=False)
+        pos = torch.arange(1, D * Lc + 1, dtype=torch.int32,
+                           device=dev).view(D, Lc)
+        # windows that start in their own chunk, and not the quirk's
+        live = valid[:, :Lc] & (pos != self._quirk_pos)
+        raw, pos = raw[:, :Lc][live], pos[live]
+        owner = owner_hash(*enc.split_hi_lo(raw), D)
+        return [_sort_shard(r, p, k)
+                for r, p in self.mesh.exchange(owner, raw, pos)]
+
+    # -- the key-range copy ---------------------------------------------------
+    def _splitters(self) -> torch.Tensor:
+        """D-1 sortable keys cutting the key space into D ranges: S keys
+        sampled from each hash shard at ``(arange(S) * n) // S``, pooled and
+        sorted, then keys[(i+1) * len // D]. An empty shard gives S copies
+        of the all-ones key (the JAX package reads its shard's invalid tail
+        there: the all-ones key too for k > 16, raw 0xFFFFFFFF for k <= 16,
+        its packed form); the tables are the same either way, as range
+        shards are emitted in key order."""
+        D, dev = self.n_shards, self.device
+        idx = torch.arange(SAMPLES, dtype=torch.int64, device=dev)
+        samples = [s.s_key[idx * s.n_valid // SAMPLES] if s.n_valid
+                   else torch.full((SAMPLES,), _LAST, dtype=torch.int64,
+                                   device=dev) for s in self.shards]
+        keys = torch.sort(torch.cat(samples)).values
+        n = keys.shape[0]
+        return keys[torch.tensor([(i + 1) * n // D for i in range(D - 1)],
+                                 dtype=torch.int64, device=dev)]
+
+    def _range_partitioned(self, splitters: Optional[torch.Tensor] = None
+                           ) -> List[Shard]:
+        """The index re-sharded by key range, so that emitting the shards
+        in order is emitting in key order: row r goes to the shard
+        ``searchsorted(splitters, key, right)`` names, so every copy of a
+        key lands in one shard. Cached, with its splitters in ``_rp_spl``.
+        ``splitters`` (sortable keys [D-1]) partitions into another
+        index's intervals (:func:`iter_kmer_pairs_sharded_chunks`) and is
+        not cached."""
+        if splitters is None and self._rp is not None:
+            return self._rp
+        spl = self._splitters() if splitters is None else splitters
+        keys = torch.cat([s.s_key for s in self.shards])
+        pos = torch.cat([s.s_pos for s in self.shards])
+        owner = torch.searchsorted(spl, keys, right=True)
+        rp = [_sort_shard(enc.sortable_key(r), p, self.k)
+              for r, p in self.mesh.exchange(owner, keys, pos)]
+        if splitters is None:
+            self._rp, self._rp_spl = rp, spl
+        return rp
+
+    def drop_range_partition(self) -> None:
+        """Release the key-range copy and its statistics (a second copy of
+        the index on the device while tables are read); the next table
+        call rebuilds it."""
+        self._rp: Optional[List[Shard]] = None
+        self._rp_spl: Optional[torch.Tensor] = None
+        self._rp_stats: Optional[List[_Groups]] = None
+
+    def _rp_group_stats(self) -> List[_Groups]:
+        """Each range shard's segment statistics, the k-mer ranks made
+        global by the distinct counts of the shards before it (cached)."""
+        if self._rp_stats is None:
+            stats, base = [], 0
+            for s in self._range_partitioned():
+                n = s.n_valid
+                starts = srt.segment_starts(s.s_key, torch.ones_like(
+                    s.s_key, dtype=torch.bool))
+                counts, i_col, _rank, m, cum_m = _group_stats(
+                    s.s_pos, n, starts, srt.segment_ids(starts))
+                n_u = int(starts.sum())
+                stats.append(_Groups(counts[:n_u], i_col + base, m, cum_m,
+                                     starts, n_u,
+                                     int(cum_m[-1]) if n else 0))
+                base += n_u
+            self._rp_stats = stats
+        return self._rp_stats
+
+    # -- kmer.pos table family (src/kmer_hash.c:1054-1147) ------------------
+    @property
+    def n_kmers(self) -> int:
+        return sum(g.n_unique for g in self._rp_group_stats())
+
+    @property
+    def total_pairs(self) -> int:
+        return sum(g.n_pairs for g in self._rp_group_stats())
+
+    def kmer_strings(self) -> List[str]:
+        """The distinct k-mers decoded, in key order."""
+        u_key = torch.cat([_unique_compact(s.s_key, g.starts) for s, g in
+                           zip(self._range_partitioned(),
+                               self._rp_group_stats())])
+        chars = _NUC[_decode_kmers(u_key, self.k).cpu().numpy()]
+        return [bytes(row).decode("ascii") for row in chars]
+
+    def counts(self) -> torch.Tensor:
+        """int32 occurrence count of each distinct k-mer, in key order."""
+        return torch.cat([g.counts for g in self._rp_group_stats()])
+
+    def pos_table(self) -> torch.Tensor:
+        """[total_kmers, 2] int32 (i, pos): i the global 1-based k-mer
+        rank, pos the 1-based window start; the single index's table."""
+        return torch.cat([torch.stack([g.i_col, s.s_pos], dim=1)
+                          for s, g in zip(self._range_partitioned(),
+                                          self._rp_group_stats())])
+
+    def iter_pair_chunks(self, capacity: int = 1 << 20
+                         ) -> Iterator[torch.Tensor]:
+        """Stream the (i, x, y) pair table range shard by range shard, in
+        chunks of at most ``capacity`` rows (clamped to each shard's
+        total): concatenated, the single index's pair table."""
+        for s, g in zip(self._range_partitioned(), self._rp_group_stats()):
+            cap = srt.clamp_chunk_capacity(capacity, g.n_pairs)
+            for start in range(0, g.n_pairs, cap):
+                yield _pair_chunk(s.s_pos, g.i_col, g.m, g.cum_m, s.n_valid,
+                                  start, min(cap, g.n_pairs - start))
+
+    def tables(self, opt_flag: int, max_pairs: Optional[int] = None
+               ) -> Dict:
+        """The ``kmer.pos`` entry (opt_flag bits 1=kmer 2=pos 4=pair.pos
+        8=count, src/kmer_hash.c:17), from the sharded index."""
+        out = {"kmer": None, "pos": None, "pair.pos": None, "count": None}
+        if opt_flag & 1:
+            out["kmer"] = self.kmer_strings()
+        if opt_flag & 2:
+            out["pos"] = self.pos_table()
+        if opt_flag & 4:
+            total = self.total_pairs
+            if max_pairs is not None and total > max_pairs:
+                raise MemoryError(
+                    f"pair table has {total} rows > max_pairs={max_pairs}; "
+                    "use iter_pair_chunks() to stream")
+            chunks = list(self.iter_pair_chunks())
+            out["pair.pos"] = (torch.cat(chunks) if chunks else torch.zeros(
+                (0, 3), dtype=torch.int32, device=self.device))
+        if opt_flag & 8:
+            out["count"] = self.counts()
+        return out
+
+    # -- queries --------------------------------------------------------------
+    def _queries(self, q_raw) -> torch.Tensor:
+        """Raw int64 k-mer patterns (as ``ops.encode.encode_stream`` gives
+        them) -> flat sortable keys on the group's device."""
+        q = torch.as_tensor(q_raw).to(self.device, torch.int64)
+        return enc.sortable_key(q.reshape(-1))
+
+    def _bounds(self, q: torch.Tensor):
+        """Each shard's (lb, ub) rows of sortable queries."""
+        return [srt.lookup_bounds(s.s_key, s.n_valid, q)
+                for s in self.shards]
+
+    def lookup_counts(self, q_raw) -> torch.Tensor:
+        """int32 occurrence count of each queried k-mer: the shards' counts
+        summed (a key lives in one shard). Queries are raw int64 patterns,
+        as the port's ``CountStore.lookup`` takes them (the JAX package
+        takes their (hi, lo) uint32 halves)."""
+        q = self._queries(q_raw)
+        out = torch.zeros(q.shape, dtype=torch.int64, device=self.device)
+        for lb, ub in self._bounds(q):
+            out += ub - lb
+        return out.to(torch.int32)
+
+    @staticmethod
+    def _hit_totals(ranges) -> np.ndarray:
+        """Each shard's hit total, int64 [D], from its (lb, c, cum_c)."""
+        return np.array([_total(r[2]) for r in ranges], np.int64)
+
+    @staticmethod
+    def _drain_chunks(call, C: int, totals: np.ndarray
+                      ) -> List[torch.Tensor]:
+        """Run a per-shard chunk emitter ``call(d, start, n)`` until every
+        shard's true total is drained, C rows a shard a round (no
+        truncation)."""
+        chunks = []
+        for start in range(0, int(totals.max(initial=0)), C):
+            for d, total in enumerate(totals.tolist()):
+                if start < total:
+                    chunks.append(call(d, start, min(C, total - start)))
+        return chunks
+
+    def positions_of(self, q_raw, max_hits_per_shard: int = 1 << 16
+                     ) -> torch.Tensor:
+        """Every 1-based position of the queried k-mers (raw int64
+        patterns), ascending, int32: gathered from every shard in chunks of
+        at most ``max_hits_per_shard`` rows, never truncated."""
+        q = self._queries(q_raw)
+        ranges = []
+        for lb, ub in self._bounds(q):
+            c = ub - lb
+            ranges.append((lb, c, torch.cumsum(c, dim=0)))
+        totals = self._hit_totals(ranges)
+        C = srt.clamp_chunk_capacity(max_hits_per_shard,
+                                     int(totals.max(initial=0)))
+        chunks = self._drain_chunks(lambda d, start, n: _hit_chunk(
+            self.shards[d].s_pos, *ranges[d], self.k, start, n)[:, 1],
+            C, totals)
+        if not chunks:
+            return torch.zeros(0, dtype=torch.int32, device=self.device)
+        return torch.sort(torch.cat(chunks)).values
+
+    def seq_kmer_pos(self, query, k: int,
+                     max_hits_per_shard: int = 1 << 20) -> torch.Tensor:
+        """Sharded ``seq.kmer.pos``: the full (i, j) int32 matrix in the
+        reference's row order (see :meth:`iter_seq_kmer_pos`)."""
+        blocks = list(self.iter_seq_kmer_pos(query, k, max_hits_per_shard))
+        return torch.cat(blocks) if blocks else _empty_rows(self.device)
+
+    def iter_seq_kmer_pos(self, query, k: int,
+                          max_hits_per_shard: int = 1 << 20
+                          ) -> Iterator[torch.Tensor]:
+        """Stream sharded ``seq.kmer.pos`` rows as (i, j)-sorted int32
+        blocks on the group's device, as the single index's
+        ``iter_seq_kmer_pos_chunks`` yields its chunks (no block where
+        nothing hits): i the 1-based query position of the window's last
+        base, j the 1-based start in the index. The query is encoded once
+        (B1, padded with N to a power of two, at least 64); every shard
+        emits the rows of the k-mers it owns in chunks of at most
+        ``max_hits_per_shard``, already (i, j)-sorted, and no window hits
+        two shards, so a frontier-bounded merge (:meth:`_merge_sorted_streams`)
+        yields the rows in global order."""
+        query = as_sequence(query, "query")
+        if query.shape[-1] <= k or k > 31:
+            raise ValueError(
+                "the sequence should be longer than k and k should not be"
+                " longer than 31")
+        tl = int(query.shape[0])
+        x = torch.full((1 << max(6, (tl - 1).bit_length()),), ord("N"),
+                       dtype=torch.uint8, device=self.device)
+        x[:tl] = torch.from_numpy(query)
+        key, valid = enc.encode_stream(x, k, tl, drop_trailing_exact_k=True)
+        ranges = []
+        for lb, ub in self._bounds(enc.sortable_key(key)):
+            c = torch.where(valid, ub - lb, 0)
+            ranges.append((lb, c, torch.cumsum(c, dim=0)))
+        totals = self._hit_totals(ranges)
+        C = srt.clamp_chunk_capacity(max_hits_per_shard,
+                                     int(totals.max(initial=0)))
+        yield from self._merge_sorted_streams(
+            lambda d, start, n: _hit_chunk(self.shards[d].s_pos, *ranges[d],
+                                           k, start, n), C, totals)
+
+    def _merge_sorted_streams(self, call, C: int, totals: np.ndarray
+                              ) -> Iterator[torch.Tensor]:
+        """Drain per-shard chunk streams (``call(d, start, n)``: each
+        stream (i, j)-sorted, the streams disjoint in i) and yield globally
+        sorted blocks as soon as they are safe: a buffered row goes out
+        once every shard still drawing has drained past it.
+
+        Buffers stay bounded under skew: a shard stops drawing while it
+        buffers 2*C rows, so the peak (``_merge_peak_rows``) is at most
+        3*D*C rows. The frontier shard's buffered rows all lie at or below
+        its own last drained key, so each emission empties it and it draws
+        again."""
+        D, dev = self.n_shards, self.device
+        bufs = [_empty_rows(dev) for _ in range(D)]
+        cursors = np.zeros(D, np.int64)
+        last_key = np.full(D, -1, np.int64)  # last drained key a shard
+        self._merge_peak_rows = 0
+        while True:
+            willing = (cursors < totals) & np.array(
+                [b.shape[0] < 2 * C for b in bufs])
+            for d in np.flatnonzero(willing).tolist():
+                chunk = call(d, int(cursors[d]),
+                             int(min(C, totals[d] - cursors[d])))
+                bufs[d] = torch.cat([bufs[d], chunk])
+                last_key[d] = int(_row_keys(chunk[-1:])[0])
+            cursors = np.where(willing, cursors + C, cursors)
+            unfinished = cursors < totals
+            self._merge_peak_rows = max(
+                self._merge_peak_rows, sum(b.shape[0] for b in bufs))
+            done = not unfinished.any()
+            frontier = None if done else torch.tensor(
+                [int(last_key[unfinished].min())], device=dev)
+            out = []
+            for d in range(D):
+                if not bufs[d].shape[0]:
+                    continue
+                cut = bufs[d].shape[0] if done else int(torch.searchsorted(
+                    _row_keys(bufs[d]), frontier, right=True))
+                if cut:
+                    out.append(bufs[d][:cut])
+                    bufs[d] = bufs[d][cut:]
+            if out:
+                block = torch.cat(out)
+                yield block[torch.argsort(_row_keys(block), stable=True)]
+            if done:
+                return
+
+
+#: peak rows buffered by the last drain of iter_kmer_pairs_sharded_chunks
+#: (a test's handle on its bounded memory)
+_PAIRS_STREAM_STATS = {"peak_rows": 0}
+
+
+def iter_kmer_pairs_sharded_chunks(a: ShardedKmerIndex, b: ShardedKmerIndex,
+                                   capacity: int = 1 << 20
+                                   ) -> Iterator[torch.Tensor]:
+    """Stream ``kmer.pairs`` across two sharded indexes as (a_pos, b_pos)
+    int32 blocks on the group's device, in the single index's row order
+    (the multi-shard form of ``index.query.iter_kmer_pairs_chunks``).
+
+    Both indexes are re-sharded by key range with ``a``'s splitters, so
+    shard d owns the same key interval in both; each shard emits its
+    cross-products in a-sorted order in chunks of at most ``capacity``
+    rows, and emitting shard by shard is the single index's order, with no
+    sort. A shard ahead of the one being emitted stops drawing once it
+    buffers 2 chunks, so at most about 3*D*capacity rows are held. With no
+    rows at all, one empty (0, 2) block."""
+    if not _same_group(a.mesh, b.mesh):
+        raise ValueError("both indexes must live on the same mesh")
+    if a.k != b.k:
+        raise ValueError("k mismatch between indexes")
+    D = a.n_shards
+    ra = a._range_partitioned()
+    rb = b._range_partitioned(splitters=a._rp_spl)
+    ranges = [_pair_ranges(x, y) for x, y in zip(ra, rb)]
+    totals = np.array([_total(r[2]) for r in ranges], np.int64)
+    C = srt.clamp_chunk_capacity(capacity, int(totals.max(initial=0)))
+    bufs: List[List[torch.Tensor]] = [[] for _ in range(D)]
+    buffered = np.zeros(D, np.int64)
+    cursors = np.zeros(D, np.int64)
+    emit_d = 0  # the shard being emitted
+    _PAIRS_STREAM_STATS["peak_rows"] = 0
+    if not totals.any():
+        yield _empty_rows(a.device)
+        return
+    while emit_d < D:
+        # the shard being emitted always draws (its buffer empties below);
+        # shards ahead stall at 2 chunks
+        willing = (cursors < totals) & (buffered < 2 * C)
+        for d in np.flatnonzero(willing).tolist():
+            n = int(min(C, totals[d] - cursors[d]))
+            bufs[d].append(_pair_hit_chunk(ra[d].s_pos, rb[d].s_pos,
+                                           *ranges[d], int(cursors[d]), n))
+            buffered[d] += n
+        cursors = np.where(willing, cursors + C, cursors)
+        _PAIRS_STREAM_STATS["peak_rows"] = max(
+            _PAIRS_STREAM_STATS["peak_rows"], int(buffered.sum()))
+        while emit_d < D:
+            while bufs[emit_d]:
+                blk = bufs[emit_d].pop(0)
+                buffered[emit_d] -= blk.shape[0]
+                yield blk
+            if cursors[emit_d] < totals[emit_d]:
+                break
+            emit_d += 1
+
+
+def kmer_pairs_sharded(a: ShardedKmerIndex, b: ShardedKmerIndex,
+                       capacity: int = 1 << 20,
+                       max_pairs: Optional[int] = None) -> torch.Tensor:
+    """Eager ``kmer.pairs`` across two sharded indexes, collected from
+    :func:`iter_kmer_pairs_sharded_chunks`. Past ``max_pairs`` rows it
+    raises MemoryError (stream past the blow-up with the iterator)."""
+    blocks, total = [], 0
+    for blk in iter_kmer_pairs_sharded_chunks(a, b, capacity):
+        total += blk.shape[0]
+        if max_pairs is not None and total > max_pairs:
+            raise MemoryError(
+                f"kmer.pairs has > max_pairs={max_pairs} rows; stream "
+                "them with iter_kmer_pairs_sharded_chunks instead")
+        blocks.append(blk)
+    return torch.cat(blocks)

@@ -1054,3 +1054,71 @@ def test_sharded_store_on_card_matches_cpu(cuda, spill, tmp_path):
     whole = checkpoint.load_count_store(p, device="cuda")
     assert torch.equal(whole.keys, one.keys) and torch.equal(whole.cnt,
                                                              one.cnt)
+
+
+@pytest.mark.parametrize("k", [11, 16, 21, 32])  # k < 11: 10^9 pair rows
+@pytest.mark.parametrize("flag", ["0", "1"])
+def test_sharded_index_on_card_matches_cpu(cuda, k, flag, monkeypatch):
+    """The sharded index on 8 logical shards on the card against the same
+    on the CPU: hash shards, splitters, range shards, tables, pair chunks,
+    lookups, seq_kmer_pos and kmer_pairs_sharded, bitwise; with
+    KMH_MERGE_SORT=1 too (every shard's sort through B3); one B1 launch a
+    build."""
+    from kmer_hasher_tpu_torch.parallel import (ShardedKmerIndex,
+                                                kmer_pairs_sharded,
+                                                make_mesh)
+
+    monkeypatch.setenv("KMH_MERGE_SORT", flag)
+    rng = np.random.default_rng(900 + k)
+    seq = random_seq(rng, 300_000, 40)
+    seq[50_000:60_000] = seq[10_000:20_000]
+    ix = {}
+    for dev in ("cuda", "cpu"):
+        before = cuda_encode.encode.launches
+        ix[dev] = ShardedKmerIndex(seq, k, make_mesh(8, device=dev))
+        assert cuda_encode.encode.launches == before + (dev == "cuda")
+    g, c = ix["cuda"], ix["cpu"]
+    assert (g.n_valid == c.n_valid).all() and g.total_kmers > 200_000
+    for a, b in zip(g.shards, c.shards):
+        assert a.s_key.is_cuda
+        assert torch.equal(a.s_key.cpu(), b.s_key)
+        assert torch.equal(a.s_pos.cpu(), b.s_pos)
+    tg, tc = g.tables(15), c.tables(15)
+    assert torch.equal(g._rp_spl.cpu(), c._rp_spl)
+    assert tg["kmer"] == tc["kmer"]
+    for f in ("pos", "pair.pos", "count"):
+        assert torch.equal(tg[f].cpu(), tc[f]), f
+    assert torch.equal(torch.cat(list(g.iter_pair_chunks(1 << 12))).cpu(),
+                       tc["pair.pos"])
+    q = c.shards[3].s_key[::7] ^ torch.iinfo(torch.int64).min
+    assert torch.equal(g.lookup_counts(q).cpu(), c.lookup_counts(q))
+    assert torch.equal(g.positions_of(q, 256).cpu(), c.positions_of(q, 256))
+    if k <= 31:
+        query = seq[40_000:70_000]
+        assert torch.equal(g.seq_kmer_pos(query, k, 1 << 12).cpu(),
+                           c.seq_kmer_pos(query, k, 1 << 12))
+        bg = ShardedKmerIndex(query, k, g.mesh)
+        bc = ShardedKmerIndex(query, k, c.mesh)
+        assert torch.equal(kmer_pairs_sharded(g, bg, 1 << 12).cpu(),
+                           kmer_pairs_sharded(c, bc, 1 << 12))
+
+
+@pytest.mark.parametrize("k", [1, 2, 16, 17, 21, 31, 32])
+def test_b1_sharded_build_rows(cuda, k):
+    """B1 on the sharded build's batch: D rows of chunk + halo bytes that
+    overlap by the halo, lengths from the host, some zero or negative (the
+    chunks past the end), the last rows' halos in the N padding."""
+    from kmer_hasher_tpu_torch.parallel.sharded import chunk_rows
+
+    rng = np.random.default_rng(70 + k)
+    for L, D, Lc in ((40, 8, 16), (5_000, 8, 1024), (70_000, 8, 16_384),
+                     (9_000, 3, 4096)):
+        seq = torch.from_numpy(random_seq(rng, L, 2))
+        rows, lengths = chunk_rows(seq, D, Lc, k, cuda)
+        assert rows.shape == (D, Lc + max(1, k - 1))
+        assert (lengths <= 0).any() or L > (D - 1) * Lc
+        key, valid = cuda_encode.encode(rows, k, lengths)
+        pk, pv = cuda_encode.plain(rows, k, torch.from_numpy(lengths).to(
+            cuda))
+        assert torch.equal(key, pk) and torch.equal(valid, pv)
+        assert not valid[torch.from_numpy(lengths <= 0).to(cuda)].any()

@@ -142,6 +142,14 @@ with tempfile.TemporaryDirectory() as d:
         cli.main(["count", str(d / "r.fq"), "-k", "11", "--mesh", "4",
                   "-o", str(d / "c.npz"), "--device", "cpu"])
     assert '"shards": [' in out.getvalue()
+# the sharded position index on 4 CPU shards, its tables and queries
+from kmer_hasher_tpu_torch.parallel import (ShardedKmerIndex,
+                                            kmer_pairs_sharded)
+six = ShardedKmerIndex("ACGTTGCANNACGTTGCAGG" * 5, 5, make_mesh(4, device="cpu"))
+assert six.total_kmers == idx.n_valid
+assert (six.tables(15)["pos"] == api.kmer_pos(idx, 15)["pos"]).all()
+assert len(six.seq_kmer_pos("TTGCAGGACGT", 5)) > 0
+assert kmer_pairs_sharded(six, six).shape[0] > 0
 for name in ("probes.dma_probes_r3", "probes.cuda_probes_dma",
              "parallel.mesh", "parallel.sharded"):
     assert "kmer_hasher_tpu_torch." + name in sys.modules, name
@@ -221,6 +229,11 @@ CALLS = {
         fromlist=["main"]).main(["16"]),
     "parallel.make_mesh": lambda api, ck, p: __import__(
         "kmer_hasher_tpu_torch.parallel", fromlist=["make_mesh"]).make_mesh(2),
+    "parallel.ShardedKmerIndex": lambda api, ck, p: __import__(
+        "kmer_hasher_tpu_torch.parallel",
+        fromlist=["ShardedKmerIndex", "make_mesh"]).ShardedKmerIndex(
+            "ACGT" * 20, 5, __import__("kmer_hasher_tpu_torch.parallel",
+                                       fromlist=["make_mesh"]).make_mesh(2)),
     "parallel.make_hierarchical_mesh": lambda api, ck, p: __import__(
         "kmer_hasher_tpu_torch.parallel",
         fromlist=["make_hierarchical_mesh"]).make_hierarchical_mesh(2, 2),
