@@ -2,12 +2,16 @@
 """Smoke run of the PyTorch port on one CUDA card: the position-index path
 (also through the merge sort behind KMH_MERGE_SORT=1, and sharded by key
 hash over 8 logical shards), the quality-filtered
-counting path (also into 8 key-hash shards), the per-base-threshold
+counting path (also into 8 key-hash shards, in one process and over gloo
+ranks that share the card), the per-base-threshold
 entries, the sort-design probes of both rounds and the DMA probes, the
 count store's spill regime with its ranged out-of-core fold, and the
 command line over the native reader, end to end.
 
     python3 chip_smoke.py          # from the root of a checkout
+
+(``--rank SPEC RANK`` runs one rank of the sharded_procs phase; the phase
+starts its ranks so.)
 
 Phases, each printing its own lines; any failure raises and the exit code
 is nonzero:
@@ -78,8 +82,8 @@ is nonzero:
              where hybrid flags reads and re-scans them in f64, against
              exact. Kernel launches are counted per path (index, merge-sort
              index, counting, file, threshold, probes, spill, probes_r3,
-             cli, probes_dma, sharded, sharded_index), set to 0 just before
-             each and read
+             cli, probes_dma, sharded, sharded_index, sharded_procs), set
+             to 0 just before each (in the ranks: at their start) and read
              just after, and with them the rows B3 merged;
    main (sharded) — the counting cell's reads through
              ShardedCountStore(21, make_mesh(8)) by the same loop, then
@@ -113,6 +117,20 @@ is nonzero:
              in-process, with launches counted, the file entry over the
              same file (path cli), with its reads/s and the parse / copy /
              wait split;
+   main (sharded procs) — the sharded count store over several
+             processes: gloo ranks of this script (``--rank SPEC RANK``)
+             sharing the card, each counting with device "cuda" through
+             count_kmers_fq_sh_rp(mesh=make_mesh(8, distributed=True)),
+             hybrid: route (b) on 2 ranks over the command-line phase's
+             FASTQ cut in byte ranges, route (a) on 4 ranks over the
+             50,000-read file cut into 4 gzip files, route (c) on 2 ranks
+             over the 50,000-read file in lockstep with checkpoint_every;
+             each against the one-process 8-shard store on the card (timed
+             before and after the ranks): every rank's shards bitwise, the
+             spectrum, n_unique and total_added as every rank reads them,
+             and (c)'s checkpoint reloaded onto 8 shards; a rank's nonzero
+             exit or timeout fails the run; launches counted in the ranks
+             (path sharded_procs);
    main (spill) — the full-corpus regime of the JAX package's
              tools/chip_probes/spill_regime.py: 244 batches x 29,696
              uniform-random 151-base reads, k=21, min_q=20, through
@@ -3146,6 +3164,279 @@ def phase_main_sharded_file(fq: Path, n_reads: int, staged, n_all: int,
         f"parser busy {tm['parse_s']:.3f} s, waiting {tm['wait_s']:.3f} s, "
         f"routing {tm['route_s']:.3f} s; B2 launches {launches[1]}, B3 "
         f"{launches[2]} | {card}")
+    return st, wall
+
+
+# -- the sharded count store over several processes ----------------------------
+
+PROCS_TIMEOUT = 300  # seconds one spawn of ranks may take
+PROCS_CKPT_EVERY = 32_768  # route (c): one checkpoint a batch, and the last
+
+
+def rank_worker(spec_path: str, rank: int) -> None:
+    """One gloo rank of ``phase_main_sharded_procs`` (``chip_smoke.py
+    --rank SPEC RANK``): counts its route through count_kmers_fq_sh_rp on
+    a group over the processes, on the card, with the kernels' launches
+    counted from 0; writes its own shards' tables and prints one JSON
+    line."""
+    from kmer_hasher_tpu_torch import api
+    from kmer_hasher_tpu_torch.parallel import make_mesh
+
+    from kmer_hasher_tpu_torch import counting
+
+    spec = json.loads(Path(spec_path).read_text())
+    info = api.init_distributed(spec["rdzv"], world_size=spec["P"],
+                                rank=rank)
+    mesh = make_mesh(SHARDS, distributed=True)
+    alone = None
+    if spec.get("parse_alone"):  # route (b): this rank's range, parse only
+        size = os.path.getsize(spec["path"])
+        rng = (size * rank // spec["P"], size * (rank + 1) // spec["P"])
+        got: dict = {}
+        mesh.barrier()
+        t0 = time.perf_counter()
+        n = sum(len(b[2]) for b in counting._iter_file_batches(
+            spec["path"], None, 0, counting._rows_per_rank(None, mesh), got,
+            byte_range=rng))
+        alone = {"wall": time.perf_counter() - t0,
+                 "parse_s": got["parse_s"], "reads": n}
+    kw = {}
+    if spec.get("ckpt"):
+        kw = dict(checkpoint_every=PROCS_CKPT_EVERY,
+                  checkpoint_path=spec["ckpt"])
+    reset_launches()
+    torch.cuda.synchronize()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    st = api.count_kmers_fq_sh_rp(spec["path"], k=K_COUNT, min_q=MIN_Q,
+                                  exact_ll="hybrid", mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    mesh.barrier()
+    wall = time.perf_counter() - t0
+    from kmer_hasher_tpu_torch.ops import cuda_encode as b1
+    from kmer_hasher_tpu_torch.ops import cuda_merge as b3
+
+    launches = read_launches()
+    rec = {"rank": rank, "info": info, "wall": wall, "parse_alone": alone,
+           "shard_timings": st.shard_timings(),
+           "device": str(st.device), "launches": list(launches),
+           "b3_rows": b3.merge.rows, "b1_positions": b1.encode.positions,
+           "timings": {k: v for k, v in st.timings.items()
+                       if not isinstance(v, str)},
+           "reader": st.timings["reader"],
+           "merges": sharded_merges(st),
+           "spectrum": st.spectrum(255).tolist(),
+           "total_added": st.total_added.tolist(),
+           "n_unique": st.n_unique.tolist()}
+    np.savez(Path(spec["out"]) / f"r{rank}.npz", **{
+        f"{c}{d}": t.cpu().numpy()
+        for d, s in zip(mesh.local_shards, st.shards)
+        for c, t in (("k", s.keys), ("c", s.cnt))})
+    mesh.barrier()
+    print(json.dumps(rec), flush=True)
+
+
+def spawn_ranks(P: int, path, tmp: Path, name: str, ckpt=None,
+                parse_alone: bool = False) -> list:
+    """P ranks of this script on the card over gloo (``--rank``); every
+    rank must exit 0 within PROCS_TIMEOUT, else every rank is killed and
+    this raises. Returns (each rank's record, its tables' file, the seconds
+    from the spawn to the last exit)."""
+    out = tmp / f"procs_{name}"
+    out.mkdir()
+    spec = out / "spec.json"
+    spec.write_text(json.dumps({
+        "P": P, "path": [str(p) for p in path] if isinstance(path, list)
+        else str(path), "out": str(out), "ckpt": ckpt and str(ckpt),
+        "parse_alone": parse_alone,
+        "rdzv": f"file://{out / 'rendezvous'}"}))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", str(spec),
+         str(r)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(P)]
+    res = []
+    try:
+        for p in procs:
+            res.append(p.communicate(timeout=PROCS_TIMEOUT))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise AssertionError(f"sharded_procs {name}: the {P} ranks did not "
+                             f"finish in {PROCS_TIMEOUT} s")
+    secs = time.perf_counter() - t0
+    bad = [f"rank {r} exited with {p.returncode}:\n{o[-1000:]}\n{e[-3000:]}"
+           for r, (p, (o, e)) in enumerate(zip(procs, res))
+           if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"sharded_procs {name}: " + "\n".join(bad))
+    recs = [json.loads(o.strip().splitlines()[-1]) for o, _e in res]
+    return [(rec, out / f"r{rec['rank']}.npz") for rec in recs], secs
+
+
+def procs_tables_equal(ranks, single) -> bool:
+    """Every rank's shards equal the one-process store's, bitwise, and the
+    ranks cover the D shards once."""
+    seen = []
+    for _rec, f in ranks:
+        with np.load(f) as z:
+            for name in z.files:
+                if name[0] != "k":
+                    continue
+                d = int(name[1:])
+                seen.append(d)
+                s = single.shards[d]
+                if not (np.array_equal(z[name], s.keys.cpu().numpy())
+                        and np.array_equal(z[f"c{d}"], s.cnt.cpu().numpy())):
+                    return False
+    return sorted(seen) == list(range(single.n_shards))
+
+
+def phase_main_sharded_procs(fq: Path, fq50: Path, single_big, single_wall,
+                             tmp: Path, card: str):
+    """The sharded count store over several processes: gloo ranks of this
+    script, each on the card (``device="cuda"``), through
+    count_kmers_fq_sh_rp(mesh=make_mesh(8, distributed=True)), hybrid, k=21:
+    route (b) on 2 ranks over the command-line phase's FASTQ (each rank
+    parses its byte range), route (a) on 4 ranks over the 50,000-read file
+    cut into 4 gzip files, route (c) on 2 ranks over the 50,000-read file
+    with checkpoint_every. Each against the one-process 8-shard store on
+    the card, timed in turns around it where it is not the file phase's:
+    every rank's shards bitwise, the spectrum and total_added as every rank
+    reads them, and for (c) the checkpoint reloaded onto 8 shards. B2 and
+    B3 must have launched in every rank (path sharded_procs, counted in the
+    ranks from 0 and summed)."""
+    import gzip
+
+    from kmer_hasher_tpu_torch import api, counting
+    from kmer_hasher_tpu_torch.parallel import make_mesh
+    from kmer_hasher_tpu_torch.utils import checkpoint
+
+    def one(path):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = api.count_kmers_fq_sh_rp(
+            [str(p) for p in path] if isinstance(path, list) else str(path),
+            k=K_COUNT, min_q=MIN_Q, exact_ll="hybrid",
+            mesh=make_mesh(SHARDS))
+        torch.cuda.synchronize()
+        return st, time.perf_counter() - t0
+
+    lines = fq50.read_bytes().splitlines(keepends=True)
+    parts = []
+    for i in range(4):
+        part = tmp / f"reads50k.{i}.fq.gz"
+        part.write_bytes(gzip.compress(b"".join(
+            lines[4 * (i * FILE_READS // 4):4 * ((i + 1) * FILE_READS // 4)]),
+            compresslevel=1))
+        parts.append(part)
+    # the parser alone in this process over the whole file and over its
+    # first half at a rank's batch size, for route (b)'s ranks, which each
+    # parse their half alone (both at once) before they count
+    parse_one = []
+    for rows, rng in ((None, None), (-(-counting._batch_rows(None) // 2),
+                                     (0, fq.stat().st_size // 2))):
+        got: dict = {}
+        t0 = time.perf_counter()
+        for _b in counting._iter_file_batches(str(fq), None, 0, rows, got,
+                                              byte_range=rng):
+            pass
+        parse_one.append(time.perf_counter() - t0)
+    ck = tmp / "procs_ckpt.npz"
+    runs = (("b", 2, fq, None), ("a", 4, parts, None), ("c", 2, fq50, ck))
+    total = [0] * len(counted_wrappers())
+    b3_rows = b1_positions = 0
+    summary = {}
+    for route, P, path, ckpt in runs:
+        if route == "b":
+            single, before = single_big, single_wall
+        else:
+            single, before = one(path)
+        ranks, spawn_s = spawn_ranks(P, path, tmp, route, ckpt,
+                                     parse_alone=route == "b")
+        after = one(path)[1]
+        recs = [r for r, _f in ranks]
+        want_spec = single.spectrum(255).tolist()
+        want_total = single.total_added.tolist()
+        if not procs_tables_equal(ranks, single):
+            raise AssertionError(f"sharded_procs route ({route}): the ranks' "
+                                 f"shards differ from the one-process store")
+        for rec in recs:
+            if (rec["spectrum"] != want_spec
+                    or rec["total_added"] != want_total
+                    or rec["n_unique"] != single.n_unique.tolist()
+                    or rec["device"].split(":")[0] != "cuda"
+                    or rec["reader"] != "native"):
+                raise AssertionError(
+                    f"sharded_procs route ({route}), rank {rec['rank']}: "
+                    f"spectrum, total_added, n_unique, device or reader "
+                    f"differ ({rec['device']}, {rec['reader']})")
+            n = rec["launches"]
+            if n[1] < 1 or n[2] < 1 or n[2] != rec["merges"]:
+                raise AssertionError(
+                    f"sharded_procs route ({route}), rank {rec['rank']}: B2 "
+                    f"launched {n[1]} and B3 {n[2]} times; its shards merged "
+                    f"two runs {rec['merges']} times")
+            total = [a + b for a, b in zip(total, n)]
+            b3_rows += rec["b3_rows"]
+            b1_positions += rec["b1_positions"]
+        if ckpt is not None:
+            back = checkpoint.load_count_store(ckpt, mesh=make_mesh(SHARDS))
+            prog = checkpoint.load_progress(ckpt)
+            if not (same_shards(back, single) and prog["done"]
+                    and prog["reads_done"] == FILE_READS):
+                raise AssertionError(f"sharded_procs route (c): the "
+                                     f"checkpoint reloaded differs ({prog})")
+        wall = max(r["wall"] for r in recs)
+        summary[route] = {"P": P, "wall": wall, "spawn_s": spawn_s,
+                          "one_process_s": [before, after],
+                          "ranks": [{key: r["timings"].get(key, 0) for key in (
+                              "parse_s", "exchange_s", "exchange_bytes",
+                              "exchanges", "file_reads", "wait_s", "copy_s",
+                              "route_s")}
+                              | {"b2": r["launches"][1],
+                                 "b3": r["launches"][2],
+                                 "tier_merge_s":
+                                     r["shard_timings"]["tier_merge_s"],
+                                 "parse_alone": r["parse_alone"]}
+                              for r in recs]}
+        if route == "b":
+            summary[route]["parse_one_process"] = parse_one
+        what = {"b": f"{fq.stat().st_size / 1e6:.1f} MB FASTQ cut in byte "
+                     f"ranges",
+                "a": f"{FILE_READS:,} reads in 4 gzip files dealt to the "
+                     f"ranks",
+                "c": f"the {FILE_READS:,}-read FASTQ in lockstep, "
+                     f"checkpoint every {PROCS_CKPT_EVERY:,} reads, reloaded "
+                     f"onto 8 shards equal"}[route]
+        log(f"[main] sharded_procs: route ({route}), {P} gloo ranks on the "
+            f"card, 8 shards, {what}: every rank's shards, spectrum(255) and "
+            f"total_added equal the one-process store's; wall {wall:.3f} s "
+            f"(slowest rank, count only; spawn to exit {spawn_s:.1f} s); "
+            f"one process, 8 shards, in turns: {before:.3f} s before, "
+            f"{after:.3f} s after; "
+            + ("" if route != "b" else
+               f"the parser alone in one process: the whole file "
+               f"{parse_one[0]:.3f} s, its first half {parse_one[1]:.3f} s; ")
+            + "; ".join(
+                f"rank {r['rank']}: parse {r['timings'].get('parse_s', 0):.3f}"
+                f" s, waiting {r['timings'].get('wait_s', 0):.3f} s, "
+                f"{r['timings']['file_reads']:,} reads, exchange "
+                f"{r['timings']['exchange_s']:.3f} s / "
+                f"{r['timings']['exchange_bytes'] / 1e6:.1f} MB over "
+                f"{r['timings']['exchanges']} exchanges, routing "
+                f"{r['timings']['route_s']:.3f} s, tier merges "
+                f"{r['shard_timings']['tier_merge_s']:.3f} s, B2 "
+                f"{r['launches'][1]}, B3 {r['launches'][2]}"
+                + ("" if r["parse_alone"] is None else
+                   f", its range parsed alone first {r['parse_alone']['wall']:.3f}"
+                   f" s") for r in recs)
+            + f" | {card}")
+    B3_ROWS["sharded_procs"] = b3_rows
+    B1_POSITIONS["sharded_procs"] = b1_positions
+    return tuple(total), summary
 
 
 def phase_card_vs_cpu_sharded(batches, tmp: Path) -> None:
@@ -3272,7 +3563,7 @@ def bound(bytes_moved: float, ops: float):
 
 PATHS = ("index", "merge_sort_index", "counting", "file", "threshold",
          "probes", "spill", "probes_r3", "cli", "probes_dma", "sharded",
-         "sharded_index")
+         "sharded_index", "sharded_procs")
 # the paths whose B3 launches are rounds of a merge sort (32-bit payload),
 # not two-run merges of the count store (implicit payload)
 SORT_ROUND_PATHS = ("merge_sort_index", "probes_dma", "sharded_index")
@@ -3323,9 +3614,14 @@ def main() -> None:
         phase_card_vs_cpu_spill(batches, fq, Path(tmp))
         launches["cli"], cli_stats = phase_main_cli(seq, batches, stats,
                                                     Path(tmp), card)
-        phase_main_sharded_file(Path(tmp) / "reads.fq", cli_stats["reads"],
-                                sh_stats.pop("store"), len(batches) * ROWS,
-                                cli_stats["wall"], card)
+        sh_big, sh_big_wall = phase_main_sharded_file(
+            Path(tmp) / "reads.fq", cli_stats["reads"],
+            sh_stats.pop("store"), len(batches) * ROWS, cli_stats["wall"],
+            card)
+        launches["sharded_procs"], procs_stats = phase_main_sharded_procs(
+            Path(tmp) / "reads.fq", Path(tmp) / "reads50k.fq", sh_big,
+            sh_big_wall, Path(tmp), card)
+        del sh_big
         phase_card_vs_cpu_cli(Path(tmp) / "reads50k.fq", Path(tmp))
         phase_card_vs_cpu_sharded(batches, Path(tmp))
     for key in ("store", "stretch", "depth"):
@@ -3509,11 +3805,15 @@ def main() -> None:
              "full, R=512"),
             ("P10", "P10 probe_lane_gather", "probe_lane_gather.cu", 117,
              "full"),
-        ), start=11)], "turns": turns, "file_entry": cli_stats}))
+        ), start=11)], "turns": turns, "file_entry": cli_stats,
+        "sharded_procs": procs_stats}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:  # one rank of the sharded_procs phase
+        rank_worker(sys.argv[2], int(sys.argv[3]))
+    else:
+        main()

@@ -18,7 +18,9 @@ Every entry that builds something takes a ``device`` and runs on the card
 (``"cuda"``) unless the caller asks for ``"cpu"``; a CUDA device with no
 card raises. Tables, query rows, count rows and depth tracks come back as
 tensors on that device; spectra are small float64 numpy arrays. Every
-name the JAX package's ``api`` exports is exported here.
+name the JAX package's ``api`` exports is exported here, and with them
+``init_distributed`` and ``host_read_slice`` for counting over several
+processes (``parallel.distributed``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from .counting import (count_kmers, count_kmers_fq, count_kmers_fq_sh,
 from .index import CountStore, KmerIndex
 from .index.query import (iter_kmer_pairs_chunks, iter_seq_kmer_pos_chunks,
                           kmer_pairs, seq_kmer_pos)
+from .parallel.distributed import host_read_slice, init_distributed
 
 __all__ = [
     "KmerIndex",
@@ -49,6 +52,8 @@ __all__ = [
     "seq_kmer_depth",
     "kmer_spectrum",
     "kmer_spectrum_n",
+    "init_distributed",
+    "host_read_slice",
 ]
 
 

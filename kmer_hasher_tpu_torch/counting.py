@@ -22,7 +22,11 @@ byte planes through pinned buffers. Which reader ran, and what the reading
 cost, is in ``store.timings`` (``reader``, ``parse_s``, ``wait_s``,
 ``copy_s``, ``h2d_bytes``, ``file_reads``). ``count_kmers_fq_sh_rp(mesh=)``
 counts into a ``parallel.ShardedCountStore`` on a shard group's logical
-shards (:func:`_count_rp_sharded`), through the same loop.
+shards (:func:`_count_rp_sharded`), through the same loop; over a group
+that spans processes, every rank parses its own part of the input (a share
+of a file list, a byte range of one plain FASTQ) or, where neither can be
+cut, its own rows of every batch, and the store's timings are the rank's
+own.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import os
 import queue
 import threading
 import time
+import warnings
 from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,7 +44,8 @@ from .index import count_store as cs
 from .index.count_store import CountStore
 from .index.position_index import as_sequence
 from .io import native
-from .io.fastx import iter_fastx, pad_records
+from .io.fastx import (is_fourline_fastq, is_gzip, iter_fastx,
+                       iter_fastx_range, pad_records)
 from .ops import cuda_scan
 from .ops import encode as enc
 from .ops import scan_iter as si
@@ -137,16 +143,30 @@ def _prefetch(it: Iterator, depth: int, info: dict) -> Iterator:
         t.join()
 
 
+def _batch_rows(batch_rows: Optional[int]) -> int:
+    """Reads per batch: ``batch_rows``, else ``KMH_BATCH_ROWS`` (read at
+    call time), else :data:`BATCH_ROWS`."""
+    if batch_rows is None:
+        batch_rows = int(os.environ.get("KMH_BATCH_ROWS", BATCH_ROWS))
+    return int(batch_rows)
+
+
 def _iter_file_batches(path, max_reads: Optional[int], skip: int = 0,
                        batch_rows: Optional[int] = None,
-                       info: Optional[dict] = None
+                       info: Optional[dict] = None,
+                       byte_range: Optional[Tuple[int, int]] = None,
+                       range_info: Optional[dict] = None
                        ) -> Iterator[Tuple[np.ndarray, ...]]:
     """Host (seq, qual, lengths, has_qual) batches of a FASTA/FASTQ file,
     one batch ahead in a producer thread. A batch's rows are its reads; its
     columns the multiple of 8 that holds the longest. ``skip`` discards the
     first N records (mid-file resume); ``max_reads`` then limits the records
-    yielded after the skip. ``batch_rows`` defaults to ``KMH_BATCH_ROWS``
-    (read at call time), else :data:`BATCH_ROWS`.
+    yielded after the skip. ``batch_rows`` as :func:`_batch_rows` reads it.
+
+    ``byte_range=(start, end)`` reads only the records whose first byte
+    falls in [start, end) of a plain file (neither ``skip`` nor
+    ``max_reads`` then); ``range_info`` receives the resolved record
+    boundaries, ``start`` at once and ``end`` when the file is drained.
 
     The native parser pads the planes in C++; where it did not build, or
     with ``KMH_NATIVE_IO=0``, the pure-Python reader does. ``info`` receives
@@ -154,15 +174,24 @@ def _iter_file_batches(path, max_reads: Optional[int], skip: int = 0,
     consumer's ``wait_s``."""
     if max_reads is not None and max_reads < 0:
         max_reads = None
-    if batch_rows is None:
-        batch_rows = int(os.environ.get("KMH_BATCH_ROWS", BATCH_ROWS))
+    if byte_range is not None and (skip or max_reads is not None):
+        raise ValueError("a byte range takes neither skip nor max_reads")
+    batch_rows = _batch_rows(batch_rows)
     info = {} if info is None else info
     info["reader"] = native.reader_name()
 
     def produce():
         if info["reader"] == "native":
-            yield from native.iter_fastx_padded(path, batch_rows, max_reads,
-                                                skip)
+            yield from native.iter_fastx_padded(
+                path, batch_rows, max_reads, skip, byte_range=byte_range,
+                range_info=range_info)
+            return
+        if byte_range is not None:
+            for recs in iter_fastx_range(path, *byte_range, batch_rows,
+                                         range_info):
+                padded = pad_records(recs, pad_to_multiple=8)
+                yield (padded.seq, padded.qual, padded.lengths,
+                       padded.has_qual)
             return
         limit = None if max_reads is None else skip + max_reads
         to_skip = skip
@@ -182,8 +211,10 @@ def _iter_file_batches(path, max_reads: Optional[int], skip: int = 0,
 def _device_batches(batches: Iterable, dev: torch.device,
                     stats: Optional[dict] = None):
     """Batches for the counting loop: each a (seq, qual, lengths, has_qual)
-    tuple of host numpy arrays or of tensors. Yields (the four as tensors
-    on ``dev``, lengths and has_qual as host numpy arrays for control flow).
+    tuple of host numpy arrays or of tensors, optionally with a fifth item,
+    the records the batch stands for (over processes, every rank's; else
+    its rows). Yields (the four as tensors on ``dev``, lengths and has_qual
+    as host numpy arrays for control flow, the records).
 
     Host batches reach a card through pinned buffers on a copy stream, one
     batch ahead: the copy of batch N+1 overlaps the device work on batch N.
@@ -193,12 +224,13 @@ def _device_batches(batches: Iterable, dev: torch.device,
     host's seconds staging and enqueueing them).
     """
     def host_view(b):
-        return tuple(a.cpu().numpy() if isinstance(a, torch.Tensor)
-                     else np.asarray(a) for a in (b[2], b[3]))
+        len_h, hq_h = (a.cpu().numpy() if isinstance(a, torch.Tensor)
+                       else np.asarray(a) for a in (b[2], b[3]))
+        return len_h, hq_h, int(b[4]) if len(b) > 4 else len(len_h)
 
     if dev.type != "cuda":
         for b in batches:
-            yield (tuple(torch.as_tensor(a).to(dev) for a in b),
+            yield (tuple(torch.as_tensor(a).to(dev) for a in b[:4]),
                    *host_view(b))
         return
     copy = torch.cuda.Stream(dev)
@@ -217,9 +249,11 @@ def _device_batches(batches: Iterable, dev: torch.device,
 
     def ship(b):
         nonlocal turn
+        host = host_view(b)
+        b = b[:4]
         if all(isinstance(a, torch.Tensor) and a.is_cuda for a in b):
             # staged on a card already ("cuda" names the current one)
-            return tuple(a.to(dev) for a in b), None, host_view(b)
+            return tuple(a.to(dev) for a in b), None, host
         t0 = time.perf_counter()
         slot = slots[turn]
         turn ^= 1
@@ -235,7 +269,7 @@ def _device_batches(batches: Iterable, dev: torch.device,
                 t.numel() * t.element_size() for t in out)
             stats["copy_s"] = stats.get("copy_s", 0.0) + (
                 time.perf_counter() - t0)
-        return out, slot["done"], host_view(b)
+        return out, slot["done"], host
 
     it = iter(batches)
     nxt = next(it, None)
@@ -313,6 +347,21 @@ def _compact_flagged(seq, qual, lengths, flags):
     return seq[idx], qual[idx], lengths[idx]
 
 
+def _spans_processes(store) -> bool:
+    """True for a sharded store whose group spans several processes: its
+    every add is a collective."""
+    mesh = getattr(store, "mesh", None)
+    return mesh is not None and mesh.distributed
+
+
+def _add_empty(store, source: int = 0) -> None:
+    """An add of no rows: nothing for one process; over processes this
+    rank's turn in an exchange every rank makes."""
+    store.add_run(torch.empty(0, dtype=torch.int64, device=store.device),
+                  torch.empty((0, store.counts_n), dtype=torch.int64,
+                              device=store.device), 0, source=source)
+
+
 def _sweep_backlog(store: CountStore, backlog: list, k: int, source: int,
                    min_ll_f: float) -> int:
     """Re-count the borderline-flagged reads exactly (f64), emptying
@@ -320,19 +369,46 @@ def _sweep_backlog(store: CountStore, backlog: list, k: int, source: int,
     the device); returns how many reads that were. One readback of the
     stacked per-batch flag counts decides what re-runs; each batch with
     flagged reads compacts them on the device and exact-scans only those.
-    Hybrid thus stays bitwise equal to ``exact_ll=True``."""
-    if not backlog:
+    Hybrid thus stays bitwise equal to ``exact_ll=True``.
+
+    For a store over several processes, where ranks flag reads in
+    different batches, every sweep is one add on every rank: the flagged
+    reads of all batches, padded to the widest, in one exact scan (or an
+    empty add where the rank has none)."""
+    collective = _spans_processes(store)
+    if not backlog and not collective:
         return 0
-    n_flags = torch.stack([b[5] for b in backlog]).cpu().tolist()
+    n_flags = (torch.stack([b[5] for b in backlog]).cpu().tolist()
+               if backlog else [])
+    picked = []
     for (seq_b, qual_b, len_b, f_b, n_win, _n), nf in zip(backlog, n_flags):
         if nf == 0:
             continue
         seq_c, qual_c, len_c = _compact_flagged(seq_b, qual_b, len_b, f_b)
+        if collective:
+            picked.append((seq_c, qual_c, len_c, n_win))
+            continue
         r = _fused_rp_batch(seq_c, qual_c, len_c,
                             torch.ones_like(len_c, dtype=torch.bool), k,
                             store.counts_n, source, min_ll_f, "exact",
                             n_win=n_win)
         store.add_run(r[0], r[1], r[2], source=source)
+    if collective:
+        if picked:
+            L = max(b[0].shape[1] for b in picked)
+            seq_c = torch.cat([torch.nn.functional.pad(
+                b[0], (0, L - b[0].shape[1]), value=ord("N"))
+                for b in picked])
+            qual_c = torch.cat([torch.nn.functional.pad(
+                b[1], (0, L - b[1].shape[1])) for b in picked])
+            len_c = torch.cat([b[2] for b in picked])
+            r = _fused_rp_batch(seq_c, qual_c, len_c,
+                                torch.ones_like(len_c, dtype=torch.bool), k,
+                                store.counts_n, source, min_ll_f, "exact",
+                                n_win=max(b[3] for b in picked))
+            store.add_run(r[0], r[1], r[2], source=source)
+        else:
+            _add_empty(store, source)
     backlog.clear()
     return sum(n_flags)
 
@@ -401,36 +477,52 @@ def count_batches(store: CountStore, batches: Iterable, k: int,
     ``on_batch(n_records, sweep)`` is called after each batch (the file
     entry checkpoints there; ``sweep()`` makes the store exact first).
     ``stats``, if given, receives ``flagged_reads``: how many reads hybrid
-    mode flagged and re-counted, and what :func:`_device_batches` counts."""
+    mode flagged and re-counted (over processes, every rank's), and what
+    :func:`_device_batches` counts (this rank's).
+
+    A batch may carry a fifth item, the records it stands for (what
+    ``on_batch`` and the meter get; its rows otherwise). A batch of no rows
+    is an empty add: over processes, a rank whose input is drained still
+    takes its turn in every exchange, and every rank sweeps after the same
+    batches."""
     fsm = _fsm_of(exact_ll)
     min_ll_f = float(Q_TO_LL[33 + int(min_q)])
     min_q_char = 33 + int(min_q)
     backlog: list = []
+    since_sweep = flagged = 0
 
     def sweep():
-        n = _sweep_backlog(store, backlog, k, source, min_ll_f)
-        if stats is not None:
-            stats["flagged_reads"] = stats.get("flagged_reads", 0) + n
-
-    for (seq, qual, lengths, has_qual), len_h, hq_h in _device_batches(
-            batches, store.device, stats):
-        with_noq = bool((~hq_h & (len_h > k)).any())
-        n_win = win_bucket(len_h.max(initial=1), k)
-        run_keys, run_cnt, n_obs, flags, n_flag = _fused_rp_batch(
-            seq, qual, lengths, has_qual, k, store.counts_n, source,
-            min_ll_f, fsm, with_noq, min_q_char=min_q_char, n_win=n_win)
-        store.add_run(run_keys, run_cnt, n_obs, source=source)
+        nonlocal since_sweep, flagged
+        since_sweep = 0
         if fsm == "hybrid":
-            backlog.append((seq, qual, lengths, flags, n_win, n_flag))
-            if len(backlog) >= _SWEEP_EVERY:
-                sweep()
-        n_recs = int(len_h.shape[0])
+            flagged += _sweep_backlog(store, backlog, k, source, min_ll_f)
+
+    for (seq, qual, lengths, has_qual), len_h, hq_h, n_recs in (
+            _device_batches(batches, store.device, stats)):
+        if len_h.shape[0]:
+            with_noq = bool((~hq_h & (len_h > k)).any())
+            n_win = win_bucket(len_h.max(initial=1), k)
+            run_keys, run_cnt, n_obs, flags, n_flag = _fused_rp_batch(
+                seq, qual, lengths, has_qual, k, store.counts_n, source,
+                min_ll_f, fsm, with_noq, min_q_char=min_q_char, n_win=n_win)
+            store.add_run(run_keys, run_cnt, n_obs, source=source)
+            if fsm == "hybrid":
+                backlog.append((seq, qual, lengths, flags, n_win, n_flag))
+        else:
+            _add_empty(store, source)
+        since_sweep += 1
+        if since_sweep >= _SWEEP_EVERY:
+            sweep()
         if on_batch is not None:
             on_batch(n_recs, sweep)
         if meter:
             meter.update(n_recs,
                          distinct_kmers=lambda: store.peek_n_unique())
     sweep()
+    if stats is not None:
+        if _spans_processes(store):
+            flagged = int(store.mesh.all_sum([flagged])[0])
+        stats["flagged_reads"] = stats.get("flagged_reads", 0) + flagged
     return store.flush()
 
 
@@ -473,7 +565,7 @@ def _count_fastq_threshold(path, k: int, min_q: int, store: CountStore,
     meter = _progress(report_every, f"count_fq[{path}]")
     info: dict = {}
     stats: dict = {}
-    for (seq, qual, lengths, has_qual), len_h, hq_h in _device_batches(
+    for (seq, qual, lengths, has_qual), len_h, hq_h, _n in _device_batches(
             _iter_file_batches(path, max_reads, info=info), store.device,
             stats):
         stats["file_reads"] = stats.get("file_reads", 0) + len(len_h)
@@ -604,6 +696,11 @@ def count_kmers_fq_sh_rp(path, k: int, prefix_bits: int = 20,
             "a file list supports neither skip_reads, max_reads nor "
             "checkpointing — make incremental per-file calls with store= "
             "for cursor-level control")
+    if paths is not None and mesh is not None and mesh.distributed:
+        _check_rp_args(k, source_n, source, exact_ll)
+        return _count_rp_sharded(paths, k, min_q, None, source_n, source,
+                                 store, mesh, exact_ll, report_every,
+                                 batch_rows=batch_rows)
     if paths is not None:
         for p in paths:
             store = count_kmers_fq_sh_rp(
@@ -611,13 +708,7 @@ def count_kmers_fq_sh_rp(path, k: int, prefix_bits: int = 20,
                 source_n, source, store, report_every, exact_ll, mesh=mesh,
                 batch_rows=batch_rows, device=device)
         return store
-    if not 1 <= k <= MAX_K:
-        raise ValueError("k must be a positive integer less than 1+MAX_K")
-    if not 1 <= source_n <= 4:
-        raise ValueError("Source_n must be in the range 1 - 4")
-    if source >= source_n:
-        raise ValueError("source_i must be less than source_n")
-    _fsm_of(exact_ll)
+    _check_rp_args(k, source_n, source, exact_ll)
     if mesh is not None:
         return _count_rp_sharded(path, k, min_q, max_reads, source_n, source,
                                  store, mesh, exact_ll, report_every,
@@ -632,20 +723,51 @@ def count_kmers_fq_sh_rp(path, k: int, prefix_bits: int = 20,
                           checkpoint_every, checkpoint_path, batch_rows)
 
 
+def _check_rp_args(k: int, source_n: int, source: int, exact_ll) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError("k must be a positive integer less than 1+MAX_K")
+    if not 1 <= source_n <= 4:
+        raise ValueError("Source_n must be in the range 1 - 4")
+    if source >= source_n:
+        raise ValueError("source_i must be less than source_n")
+    _fsm_of(exact_ll)
+
+
 def _count_rp_sharded(path, k: int, min_q: int, max_reads: Optional[int],
                       source_n: int, source: int, store, mesh, exact_ll,
                       report_every: Optional[int], skip_reads: int = 0,
                       checkpoint_every: Optional[int] = None,
                       checkpoint_path: Optional[str] = None,
                       batch_rows: Optional[int] = None):
-    """``count_kmers_fq_sh_rp(mesh=)`` on one file: a new
-    ``ShardedCountStore`` over ``mesh`` (or the given one, of the group's
-    size) filled by the single store's loop. Each batch's run is routed to
-    its owner shards (``ShardedCountStore.add_run``); the hybrid sweep,
-    ``skip_reads``, ``max_reads``, checkpoints with progress records and
-    ``report_every`` work as for one store. One process reads the file (the
-    JAX package's multi-process routes over byte ranges or whole files
-    need several processes, which the port does not start)."""
+    """``count_kmers_fq_sh_rp(mesh=)``: a new ``ShardedCountStore`` over
+    ``mesh`` (or the given one, of the group's size) filled by the single
+    store's loop. Each batch's run is routed to its owner shards
+    (``ShardedCountStore.add_run``); the hybrid sweep, ``skip_reads``,
+    ``max_reads``, checkpoints with progress records and ``report_every``
+    work as for one store.
+
+    Over a group that spans processes (the JAX package's multi-process
+    routes), every rank calls this with the same arguments and one of three
+    routes is taken:
+
+    (a) a file list, when ``KMH_FILE_PARTITION`` is not "0" and it is "1",
+        or any file is gzip, or there are at least as many files as
+        processes: the files are dealt to the ranks greedily by size
+        (:func:`_count_rp_files`); a shorter list of plain files is counted
+        file by file through (b) or (c);
+    (b) one plain 4-line FASTQ (or FASTA) file, with no ``skip_reads``, no
+        ``max_reads``, no checkpoints and ``KMH_HOST_SLICE`` not "0": rank
+        p reads only the records that start in bytes [size*p/P,
+        size*(p+1)/P) (:func:`_count_rp_sliced`);
+    (c) otherwise, lockstep: every rank streams the whole file and counts
+        its own contiguous block of every batch's rows, the batch padded
+        with empty rows to a multiple of D (:func:`_count_rp_lockstep`); a
+        lone gzip file comes here, with a warning (once a process), as
+        gzip cannot be read from a byte offset.
+
+    (a) and (b) read a different number of batches on each rank: a small
+    allgather a batch keeps every rank's exchanges in step
+    (:func:`_aligned_batches`)."""
     from .parallel.sharded import ShardedCountStore
 
     if store is None:
@@ -656,9 +778,188 @@ def _count_rp_sharded(path, k: int, min_q: int, max_reads: Optional[int],
     if store.n_shards != mesh.size:
         raise ValueError(f"the store has {store.n_shards} shards; the mesh "
                          f"has {mesh.size}")
+    if not mesh.distributed:
+        return _count_rp_file(path, k, min_q, max_reads, source, store,
+                              exact_ll, report_every, skip_reads,
+                              checkpoint_every, checkpoint_path, batch_rows)
+    if store.k != k:
+        raise ValueError("Incompatible arguments: k does not match the store")
+    if source >= store.counts_n:
+        raise ValueError("Value of source is too large")
+    if isinstance(path, list):
+        fp = os.environ.get("KMH_FILE_PARTITION", "")
+        if fp != "0" and (fp == "1" or any(is_gzip(p) for p in path)
+                          or len(path) >= mesh.process_count):
+            return _count_rp_files(path, k, min_q, source, store, exact_ll,
+                                   report_every, batch_rows)
+        for p in path:
+            store = _count_rp_sharded(p, k, min_q, None, source_n, source,
+                                      store, mesh, exact_ll, report_every,
+                                      batch_rows=batch_rows)
+        return store
+    gz = is_gzip(path)
+    if (not skip_reads and max_reads is None and checkpoint_every is None
+            and not gz and is_fourline_fastq(path)
+            and os.environ.get("KMH_HOST_SLICE", "1") != "0"):
+        return _count_rp_sliced(path, k, min_q, source, store, exact_ll,
+                                report_every, batch_rows)
+    if gz and not _WARNED_GZIP_LOCKSTEP:
+        _warn_gzip_lockstep(path)
     return _count_rp_file(path, k, min_q, max_reads, source, store,
                           exact_ll, report_every, skip_reads,
                           checkpoint_every, checkpoint_path, batch_rows)
+
+
+_WARNED_GZIP_LOCKSTEP = False
+
+
+def _warn_gzip_lockstep(path) -> None:
+    global _WARNED_GZIP_LOCKSTEP
+    _WARNED_GZIP_LOCKSTEP = True
+    warnings.warn(
+        f"{path} is gzip: a gzip stream cannot be read from a byte offset, "
+        f"so every process parses all of it (lockstep); pass a list of "
+        f"files to deal them to the processes instead", RuntimeWarning,
+        stacklevel=3)
+
+
+def _lockstep_rows(batches: Iterable, mesh) -> Iterator[tuple]:
+    """Route (c): each whole-file batch padded with empty rows ('N', no
+    length) to a multiple of D, then this rank's contiguous block of its
+    rows, with the batch's record count as the fifth item."""
+    P, p = mesh.process_count, mesh.process_index
+    D = mesh.size
+    for seq, qual, lengths, has_qual in batches:
+        B = int(lengths.shape[0])
+        pad = -B % D
+        if pad:
+            seq = np.pad(seq, ((0, pad), (0, 0)), constant_values=ord("N"))
+            qual = np.pad(qual, ((0, pad), (0, 0)))
+            lengths = np.pad(lengths, (0, pad))
+            has_qual = np.pad(has_qual, (0, pad))
+        rpp = (B + pad) // P
+        sl = slice(p * rpp, (p + 1) * rpp)
+        yield seq[sl], qual[sl], lengths[sl], has_qual[sl], B
+
+
+def _aligned_batches(batches: Iterable, mesh, mine: dict
+                     ) -> Iterator[tuple]:
+    """Routes (a) and (b): this rank's batches, each after one allgather of
+    (live, reads) over the ranks, with every rank's reads as the fifth
+    item; once this rank is drained, empty batches while any rank is not;
+    the end when none is. ``mine["reads"]`` counts this rank's reads."""
+    mine.setdefault("reads", 0)
+    it = iter(batches)
+    while True:
+        b = next(it, None)
+        n = 0 if b is None else int(b[2].shape[0])
+        g = mesh.allgather([b is not None, n])
+        if not g[:, 0].any():
+            return
+        mine["reads"] += n
+        if b is None:
+            b = (np.zeros((0, 8), np.uint8), np.zeros((0, 8), np.uint8),
+                 np.zeros(0, np.int32), np.zeros(0, bool))
+        yield (*b[:4], int(g[:, 1].sum()))
+
+
+def _count_aligned(label: str, batches: Iterable, k: int, min_q: int,
+                   source: int, store, exact_ll, report_every, info: dict
+                   ) -> dict:
+    """The loop of routes (a) and (b) over this rank's host batches; what
+    the reading cost goes into ``store.timings`` (this rank's parse and
+    reads). Returns ``{"reads": this rank's reads}``."""
+    mine: dict = {}
+    stats: dict = {}
+    count_batches(store, _aligned_batches(batches, store.mesh, mine), k,
+                  min_q, source, exact_ll,
+                  meter=_progress(report_every, label), stats=stats)
+    stats["file_reads"] = mine["reads"]
+    _record_reading(store, info, stats)
+    return mine
+
+
+def _rows_per_rank(batch_rows: Optional[int], mesh) -> int:
+    """Reads per batch on each rank of routes (a) and (b): a batch's reads
+    over the ranks, so that a step of every rank reads about one batch."""
+    return max(1, -(-_batch_rows(batch_rows) // mesh.process_count))
+
+
+def _count_rp_sliced(path, k: int, min_q: int, source: int, store, exact_ll,
+                     report_every, batch_rows: Optional[int]):
+    """Route (b): this rank parses only the records whose first byte falls
+    in its byte range (the readers re-synchronise to a record boundary),
+    then the resolved ranges are checked to tile the file
+    (:func:`_check_slice_continuity`)."""
+    mesh = store.mesh
+    P, p = mesh.process_count, mesh.process_index
+    size = os.path.getsize(path)
+    rng = (size * p // P, size * (p + 1) // P)
+    range_info: dict = {}
+    info: dict = {}
+    it = _iter_file_batches(path, None, 0, _rows_per_rank(batch_rows, mesh),
+                            info, byte_range=rng, range_info=range_info)
+    mine = _count_aligned(f"count_rp_sliced[{path}]", it, k, min_q, source,
+                          store, exact_ll, report_every, info)
+    _check_slice_continuity(path, range_info, mine["reads"], mesh)
+    return store
+
+
+def _count_rp_files(paths: List[str], k: int, min_q: int, source: int,
+                    store, exact_ll, report_every,
+                    batch_rows: Optional[int]):
+    """Route (a): the files dealt to the ranks greedily by size (largest
+    first, each to the least loaded rank, ties to the lower index; where a
+    file cannot be stat'ed, round robin), each rank parsing only its
+    own."""
+    mesh = store.mesh
+    P, p = mesh.process_count, mesh.process_index
+    try:
+        sizes = [os.path.getsize(f) for f in paths]
+    except OSError:
+        mine = list(paths[p::P])
+    else:
+        loads = [0] * P
+        assign: List[List[int]] = [[] for _ in range(P)]
+        for i in sorted(range(len(paths)), key=lambda i: (-sizes[i], i)):
+            j = min(range(P), key=lambda t: (loads[t], t))
+            assign[j].append(i)
+            loads[j] += sizes[i]
+        mine = [paths[i] for i in sorted(assign[p])]
+    rows = _rows_per_rank(batch_rows, mesh)
+    info = {"reader": native.reader_name()}  # also where no file is mine
+
+    def produce():
+        for f in mine:
+            yield from _iter_file_batches(f, None, 0, rows, info)
+
+    _count_aligned(f"count_rp_files[{len(paths)} files, {len(mine)} mine]",
+                   produce(), k, min_q, source, store, exact_ll,
+                   report_every, info)
+    return store
+
+
+def _check_slice_continuity(path, range_info: dict, my_reads: int,
+                            mesh) -> None:
+    """The ranks' resolved record boundaries must tile the file: rank p's
+    range ends where the next rank with reads starts, and the last ends at
+    the file's end. Raises otherwise (a multi-line FASTQ past the 4-line
+    check, a quality line that fooled the boundary search), where reads
+    would have been dropped or counted twice."""
+    g = mesh.allgather([1 if my_reads > 0 else 0,
+                        range_info.get("start", -1),
+                        range_info.get("end", -1)])
+    chain = [(int(a), int(b)) for live, a, b in g if live]
+    if not chain:
+        return
+    size = os.path.getsize(path)
+    if not (all(chain[j][1] == chain[j + 1][0]
+                for j in range(len(chain) - 1)) and chain[-1][1] == size):
+        raise RuntimeError(
+            f"the processes' input slices do not tile the file (resolved "
+            f"boundaries {chain}, size {size}): records would be dropped "
+            f"or counted twice. Is this a multi-line FASTQ past the 4-line "
+            f"check? Count it with KMH_HOST_SLICE=0 (lockstep).")
 
 
 def _count_rp_file(path, k: int, min_q: int, max_reads: Optional[int],
@@ -668,7 +969,9 @@ def _count_rp_file(path, k: int, min_q: int, max_reads: Optional[int],
                    checkpoint_path: Optional[str],
                    batch_rows: Optional[int]):
     """The per-file body of :func:`count_kmers_fq_sh_rp` for either store
-    kind: a ``CountStore`` or a ``ShardedCountStore``."""
+    kind: a ``CountStore`` or a ``ShardedCountStore``; over processes, the
+    lockstep route (c), where every rank reads every record and the
+    progress record counts them all."""
     if store.k != k:
         raise ValueError("Incompatible arguments: k does not match the store")
     if source >= store.counts_n:
@@ -687,10 +990,11 @@ def _count_rp_file(path, k: int, min_q: int, max_reads: Optional[int],
 
     info: dict = {}
     stats: dict = {}
-    count_batches(store,
-                  _iter_file_batches(path, max_reads, skip_reads, batch_rows,
-                                     info),
-                  k, min_q, source, exact_ll,
+    batches = _iter_file_batches(path, max_reads, skip_reads, batch_rows,
+                                 info)
+    if _spans_processes(store):
+        batches = _lockstep_rows(batches, store.mesh)
+    count_batches(store, batches, k, min_q, source, exact_ll,
                   meter=_progress(report_every, f"count_rp[{path}]"),
                   on_batch=on_batch, stats=stats)
     stats["file_reads"] = reads_done - int(skip_reads)
@@ -707,7 +1011,10 @@ def _count_rp_file(path, k: int, min_q: int, max_reads: Optional[int],
 
 def _checkpoint_progress(store, ckpt_path, src_path, reads_done,
                          done: bool = False) -> None:
-    """Atomically persist the store + resume cursor (write tmp, replace)."""
+    """Atomically persist the store + resume cursor (write tmp, replace).
+    Over processes the save is collective and rank 0 writes the file; it
+    replaces the checkpoint once every rank is past the save, and every
+    rank leaves only after that."""
     from .utils import checkpoint as ckpt
 
     tmp = str(ckpt_path) + ".tmp.npz"  # .npz so numpy doesn't re-suffix
@@ -715,7 +1022,11 @@ def _checkpoint_progress(store, ckpt_path, src_path, reads_done,
         store, tmp,
         progress={"path": str(src_path), "reads_done": int(reads_done),
                   "done": bool(done)})
-    os.replace(tmp, ckpt_path)
+    mesh = getattr(store, "mesh", None)
+    if mesh is None or mesh.process_index == 0:
+        os.replace(tmp, ckpt_path)
+    if mesh is not None:
+        mesh.barrier()
 
 
 def seq_kmer_depth(store: CountStore, seq, k: int,

@@ -480,9 +480,11 @@ class CountStore:
         keys, cnt = (self._staging.to_host(t) for t in run)
         if self.spill_dir is not None:
             os.makedirs(self.spill_dir, exist_ok=True)
+            # the process id keeps two processes sharing the directory
+            # apart: their stores may have the same id()
             path = os.path.join(
                 self.spill_dir,
-                f"kmh_spill_{id(self):x}_{self._spill_seq}.npz")
+                f"kmh_spill_{os.getpid()}_{id(self):x}_{self._spill_seq}.npz")
             np.savez(path, keys=keys.numpy(), cnt=cnt.numpy())
             self._spilled.append(("file", path))
         else:

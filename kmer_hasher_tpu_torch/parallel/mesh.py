@@ -1,34 +1,49 @@
 """Shard groups: where the JAX package has a device mesh
-(``kmer_hasher_tpu/parallel/mesh.py``), the port has D logical shards in
-one process, on one device.
+(``kmer_hasher_tpu/parallel/mesh.py``), the port has D logical shards on
+one device per process, in one process or spread over the processes of a
+``torch.distributed`` group.
 
 The JAX mesh's one axis ("shard") is key-space sharding: every k-mer has an
-owner shard, and batches are routed to their owners by ``all_to_all``. Here
-the shards live side by side on one device, and the exchange that routes
-keys to their owners is a local regrouping (:meth:`ShardGroup.exchange`):
-one stable sort by owner, the D bucket sizes read back once, and each
-shard's bucket cut out at its exact length. The results are the JAX mesh's:
-the same keys land in the same shard.
+owner shard, and batches are routed to their owners by ``all_to_all``. In
+one process the D shards live side by side on one device, and the exchange
+that routes keys to their owners is a local regrouping
+(:meth:`ShardGroup.exchange`): one stable sort by owner, the D bucket sizes
+read back once, and each shard's bucket cut out at its exact length. The
+results are the JAX mesh's: the same keys land in the same shard.
 
-A group of one process per shard over ``torch.distributed`` would put its
-all-to-all behind the same method; it is not built.
+The process form (``make_mesh(D, distributed=True)``, after
+:func:`.distributed.init_distributed`): P processes, each owning the D/P
+shards ``p*D/P ... (p+1)*D/P - 1`` (the JAX mesh's process-major device
+order), on the device it names. The same method then sends every rank its
+rows by ``all_to_all_single``: first the bucket sizes, then each column
+with exact split sizes (no capacity padding), staged through pinned host
+memory. Every rank must call it the same number of times, also with no
+rows, or the ranks wait on each other for ever.
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..index.position_index import resolve_device
+from . import distributed
 
 
 class ShardGroup:
     """D logical shards on ``device``. ``size`` is D, ``shape`` the layout
     it was asked for ((D,), or (slices, shards per slice)), ``device`` where
-    every shard's tensors live."""
+    this process's shards' tensors live. With ``processes`` the group spans
+    the default process group: ``process_count`` P (which must divide D),
+    ``process_index`` this rank, ``local_shards`` the range of shards it
+    owns; without, one process owns all D."""
 
     def __init__(self, n_shards: int, device="cuda",
-                 shape: Optional[Sequence[int]] = None):
+                 shape: Optional[Sequence[int]] = None,
+                 processes: bool = False):
         n_shards = int(n_shards)
         if n_shards < 1:
             raise ValueError("a shard group needs at least one shard")
@@ -37,28 +52,144 @@ class ShardGroup:
         self.axis_names = ("shard",) if len(self.shape) == 1 else (
             "dcn", "ici")
         self.device = resolve_device(device)
+        if processes and not dist.is_initialized():
+            raise RuntimeError("a shard group over processes needs the "
+                               "default process group: call "
+                               "init_distributed first")
+        P = distributed.process_count() if processes else 1
+        if n_shards % P:
+            raise ValueError(f"{n_shards} shards do not split evenly over "
+                             f"{P} processes")
+        self.process_count = P
+        self.process_index = distributed.process_index() if processes else 0
+        per = n_shards // P
+        self.local_shards = range(self.process_index * per,
+                                  (self.process_index + 1) * per)
 
     def __repr__(self) -> str:
+        procs = (f", processes={self.process_count}"
+                 if self.process_count > 1 else "")
         return (f"ShardGroup(size={self.size}, shape={self.shape}, "
-                f"device={self.device})")
+                f"device={self.device}{procs})")
 
-    def exchange(self, owner: torch.Tensor, *cols: torch.Tensor
-                 ) -> List[Tuple[torch.Tensor, ...]]:
-        """Route rows to their owners: for each shard d, the rows of every
-        column whose ``owner`` is d, in their order (a stable regrouping, so
-        a sorted column stays sorted within each shard). One readback: the
-        D bucket sizes."""
+    @property
+    def distributed(self) -> bool:
+        """True where the shards are spread over several processes."""
+        return self.process_count > 1
+
+    # -- host collectives (identities in one process) -------------------------
+    def allgather(self, values) -> np.ndarray:
+        """Every rank's int64 vector, [P, n] in rank order."""
+        if not self.distributed:
+            return np.asarray(values, np.int64).reshape(1, -1).copy()
+        return distributed.allgather(values)
+
+    def all_sum(self, values) -> np.ndarray:
+        """The int64 vector summed over the ranks."""
+        if not self.distributed:
+            return np.asarray(values, np.int64).reshape(-1).copy()
+        return distributed.all_sum(values)
+
+    def barrier(self) -> None:
+        if self.distributed:
+            distributed.barrier()
+
+    # -- routing ---------------------------------------------------------------
+    def exchange(self, owner: torch.Tensor, *cols: torch.Tensor,
+                 by_rank: bool = False, stats: Optional[dict] = None
+                 ) -> list:
+        """Route rows to their owners: for each shard d this process owns,
+        the rows of every column whose ``owner`` is d, from every rank in
+        rank order, each rank's in their order (a stable regrouping, so a
+        column sorted on every rank stays sorted within each rank's piece).
+        With ``by_rank`` each shard's entry is a list of P such column
+        tuples, one per sending rank, instead of their concatenation.
+
+        In one process: one readback, the D bucket sizes. Over processes:
+        the sizes go to their owners by one ``all_to_all_single``, then each
+        column by one more with exact splits, through host memory.
+        ``stats`` gains ``exchanges``, ``exchange_s`` and ``exchange_bytes``
+        (the bytes of the rows and sizes this rank sent to other ranks)."""
+        t0 = time.perf_counter()
         order = torch.sort(owner, stable=True).indices
         sizes = torch.bincount(owner, minlength=self.size).tolist()
         if len(sizes) != self.size:
             raise ValueError("an owner lies outside the group")
-        parts = [torch.split(c[order], sizes) for c in cols]
-        return [tuple(p[d] for p in parts) for d in range(self.size)]
+        if not self.distributed:
+            parts = [torch.split(c[order], sizes) for c in cols]
+            out = [tuple(p[d] for p in parts) for d in range(self.size)]
+            return [[o] for o in out] if by_rank else out
+        pieces, sent = self._all_to_all(order, sizes, cols)
+        if stats is not None:
+            stats["exchanges"] = stats.get("exchanges", 0) + 1
+            stats["exchange_s"] = stats.get("exchange_s", 0.0) + (
+                time.perf_counter() - t0)
+            stats["exchange_bytes"] = stats.get("exchange_bytes", 0) + sent
+        if by_rank:
+            return pieces
+        return [tuple(torch.cat([p[i] for p in per_rank])
+                      for i in range(len(cols))) for per_rank in pieces]
+
+    def _all_to_all(self, order: torch.Tensor, sizes: List[int],
+                    cols: Sequence[torch.Tensor]):
+        """The process form of :meth:`exchange`: (for each local shard a
+        list over sending ranks of column tuples, bytes sent to others)."""
+        P, me = self.process_count, self.process_index
+        per = self.size // P
+        send = torch.tensor(sizes, dtype=torch.int64)
+        recv = torch.empty_like(send)  # [P, per]: rank r's rows for my shards
+        dist.all_to_all_single(recv, send)
+        recv = recv.view(P, per)
+        send_rows = [sum(sizes[q * per:(q + 1) * per]) for q in range(P)]
+        recv_rows = recv.sum(1).tolist()
+        sent = 8 * per * (P - 1)
+        out_cols = []
+        for c in cols:
+            src = c[order]
+            row = int(np.prod(src.shape[1:])) * src.element_size()
+            sent += row * (sum(send_rows) - send_rows[me])
+            host = _to_host(src)
+            got = torch.empty((sum(recv_rows), *src.shape[1:]),
+                              dtype=host.dtype,
+                              pin_memory=self.device.type == "cuda")
+            dist.all_to_all_single(got, host, recv_rows, send_rows)
+            out_cols.append(_from_host(got, c.dtype, self.device))
+        # rank r's block holds its rows for my shards in shard order
+        bounds = np.concatenate([[0], np.cumsum(recv.reshape(-1).numpy())])
+        pieces = [[tuple(col[bounds[r * per + i]:bounds[r * per + i + 1]]
+                         for col in out_cols) for r in range(P)]
+                  for i in range(per)]
+        return pieces, sent
 
 
-def make_mesh(n_devices: Optional[int] = None, device="cuda") -> ShardGroup:
-    """A flat group of ``n_devices`` shards (one if None) on ``device``."""
-    return ShardGroup(1 if n_devices is None else n_devices, device)
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous host tensor gloo can send: device rows copied
+    to pinned memory, bool viewed as bytes."""
+    t = t.contiguous()
+    if t.dtype == torch.bool:
+        t = t.view(torch.uint8)
+    if t.device.type == "cpu":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def _from_host(t: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
+    """A received host tensor (pinned where ``device`` is a card) on
+    ``device``, in ``dtype``."""
+    if dtype == torch.bool:
+        t = t.view(torch.bool)
+    return t.to(device, non_blocking=True)
+
+
+def make_mesh(n_devices: Optional[int] = None, device="cuda",
+              distributed: bool = False) -> ShardGroup:
+    """A flat group of ``n_devices`` shards (one if None) on ``device``;
+    with ``distributed``, spread over the default process group's ranks
+    (:func:`.distributed.init_distributed` first)."""
+    return ShardGroup(1 if n_devices is None else n_devices, device,
+                      processes=distributed)
 
 
 def make_hierarchical_mesh(n_slices: int,

@@ -36,11 +36,13 @@ Left out of the JAX module, with the reason:
 * the program cache (``_LRU``, ``_shared_program``): eager PyTorch
   compiles no program per shape;
 * ``_global_put``, ``_globalize`` and ``_replicated``, and ``_host_read``
-  across processes: one process holds every shard (several processes over
-  ``torch.distributed`` are a later slice);
+  across processes: a process holds its own shards' tensors, and a read
+  across processes is one of the shard group's host collectives (the
+  count store's; the position index is built in one process only);
 * the trim of dead routing slots and key-only runs: a run here is its live
   rows only, as in the port's single store;
-* the allgather of every run on spill: each shard spills only its own rows;
+* the allgather of every run on spill: each shard spills only its own rows,
+  on its own rank;
 * the index's compacted expansion plans (``exp.use_plan``,
   ``ExpansionPlan``): rows expand by a plain searchsorted over prefix
   sums, in the same order.
@@ -101,13 +103,24 @@ class ShardedCountStore:
     ``mesh.device``, shard d holding exactly the keys whose
     :func:`owner_hash` is d.
 
+    Over a group that spans processes each rank holds only its own shards
+    (``shards[i]`` is shard ``mesh.local_shards[i]``; ``n_shards`` stays D),
+    and every add routes through the group's all-to-all, also with no rows,
+    so every rank must make the same adds. The reads are collectives that
+    every rank makes and that give every rank the one-process store's
+    answer: ``total_added`` and ``peek_n_unique`` summed, ``n_unique``
+    gathered to [D], ``spectrum`` / ``spectrum_n`` / ``lookup`` summed over
+    the ranks' own shards (a lookup's queries are the same on every rank).
+
     ``spill_bytes`` bounds the device bytes of the resident runs of all
     shards together: each shard spills its own largest run once its runs
     pass ``spill_bytes // D``, to host memory or to files under
-    ``spill_dir``, and rejoins them at its fold (by key range where the
-    fold budget says so). ``timings`` holds the routing's host seconds and
-    what the file entries record there (reader, parse, copy);
-    :meth:`shard_timings` sums the shards' own (tier merges, folds,
+    ``spill_dir`` (on its own rank: a shared directory holds every rank's
+    files under names of their own), and rejoins them at its fold (by key
+    range where the fold budget says so). ``timings`` holds the routing's
+    host seconds, the exchange's seconds and the bytes it sent to other
+    ranks, and what the file entries record there (reader, parse, copy);
+    :meth:`shard_timings` sums this rank's shards' own (tier merges, folds,
     spills)."""
 
     def __init__(self, k: int, mesh: ShardGroup, counts_n: int = 1,
@@ -128,23 +141,26 @@ class ShardedCountStore:
             CountStore(self.k, counts_n=self.counts_n, mode="sh",
                        spill_bytes=per, spill_dir=spill_dir,
                        device=self.device)
-            for _ in range(self.n_shards)]
+            for _ in mesh.local_shards]
         self._total_added = np.zeros(self.counts_n, np.int64)
-        self.timings = {"routes": 0, "route_s": 0.0}
+        self.timings = {"routes": 0, "route_s": 0.0, "exchanges": 0,
+                        "exchange_s": 0.0, "exchange_bytes": 0}
 
     # -- adds -----------------------------------------------------------------
     @property
     def total_added(self) -> np.ndarray:
-        """Observations added per source, int64 [counts_n]."""
-        return self._total_added.copy()
+        """Observations added per source, int64 [counts_n] (summed over the
+        ranks: a collective)."""
+        return self.mesh.all_sum(self._total_added)
 
     def add_run(self, keys: torch.Tensor, cnt: torch.Tensor, n_obs: int,
                 source: int = 0) -> "ShardedCountStore":
         """Route a run — sorted unique sortable keys [n] with int64 count
         rows [n, counts_n], as ``CountStore.add_run`` takes it — to the
-        owner shards: each takes its bucket as a run of its own (still
-        sorted and unique). ``n_obs`` observations of ``source`` go into
-        ``total_added``."""
+        owner shards: each takes its bucket, from each rank, as a run of its
+        own (still sorted and unique). ``n_obs`` observations of ``source``
+        go into ``total_added``. Over processes an empty run is routed too:
+        every rank's add is one exchange."""
         if not 0 <= source < self.counts_n:
             raise ValueError("source out of range")
         if cnt.shape != (keys.shape[0], self.counts_n):
@@ -153,14 +169,16 @@ class ShardedCountStore:
         keys = keys.to(self.device)
         cnt = cnt.to(self.device, torch.int64)
         self._total_added[source] += int(n_obs)
-        if keys.shape[0]:
+        if keys.shape[0] or self.mesh.distributed:
             owner = owner_of_keys(keys, self.n_shards)
-            buckets = self.mesh.exchange(owner, keys, cnt)
+            buckets = self.mesh.exchange(owner, keys, cnt, by_rank=True,
+                                         stats=self.timings)
             self.timings["routes"] += 1
             self.timings["route_s"] += time.perf_counter() - t0
-            for shard, (k_d, c_d) in zip(self.shards, buckets):
-                if k_d.shape[0]:
-                    shard.add_run(k_d, c_d, 0, source=source)
+            for shard, pieces in zip(self.shards, buckets):
+                for k_d, c_d in pieces:
+                    if k_d.shape[0]:
+                        shard.add_run(k_d, c_d, 0, source=source)
         return self
 
     def add_batch(self, raw: torch.Tensor, valid: torch.Tensor,
@@ -172,7 +190,7 @@ class ShardedCountStore:
         keys = enc.sortable_key(raw.to(self.device).reshape(-1)
                                 [valid.to(self.device).reshape(-1)])
         n = int(keys.shape[0])
-        if n:
+        if n or self.mesh.distributed:
             run = cs.build_run(keys, self.counts_n, source)
             self.add_run(run[0], run[1], n, source=source)
         return self
@@ -204,7 +222,7 @@ class ShardedCountStore:
 
     def flush(self) -> "ShardedCountStore":
         """Fold every shard's runs, spilled ones included, into its base
-        table (the JAX store's ``_fold``)."""
+        table (the JAX store's ``_fold``); this rank's shards only."""
         for shard in self.shards:
             shard.flush()
         return self
@@ -212,16 +230,19 @@ class ShardedCountStore:
     # -- sizes ----------------------------------------------------------------
     @property
     def n_unique(self) -> np.ndarray:
-        """Distinct k-mers per shard, int64 [D]; folds first."""
-        return np.array([s.n_unique for s in self.shards], np.int64)
+        """Distinct k-mers per shard, int64 [D]; folds first (gathered over
+        the ranks: a collective)."""
+        local = np.array([s.n_unique for s in self.shards], np.int64)
+        return self.mesh.allgather(local).reshape(-1)
 
     def peek_n_unique(self) -> int:
         """Exact distinct count over all shards without installing new base
-        tables (the progress meter's read)."""
-        return sum(s.peek_n_unique() for s in self.shards)
+        tables (the progress meter's read; summed over the ranks)."""
+        return int(self.mesh.all_sum(
+            [sum(s.peek_n_unique() for s in self.shards)])[0])
 
     def shard_timings(self) -> dict:
-        """The shards' ``timings`` summed key by key."""
+        """This rank's shards' ``timings`` summed key by key."""
         out: dict = {}
         for s in self.shards:
             for key, v in s.timings.items():
@@ -229,39 +250,54 @@ class ShardedCountStore:
         return out
 
     # -- queries --------------------------------------------------------------
+    def _summed(self, parts: List[np.ndarray]) -> np.ndarray:
+        """This rank's shards' histograms summed, then over the ranks (in
+        int64: they hold whole counts), in their own dtype."""
+        local = np.sum(parts, axis=0)
+        if not self.mesh.distributed:
+            return local
+        total = self.mesh.all_sum(local.astype(np.int64).reshape(-1))
+        return total.reshape(local.shape).astype(local.dtype)
+
     def spectrum(self, max_count: int) -> np.ndarray:
         """Global count histogram: the shards' spectra summed (each key
         lives in one shard)."""
-        return np.sum([s.spectrum(max_count) for s in self.shards], axis=0)
+        return self._summed([s.spectrum(max_count) for s in self.shards])
 
     def spectrum_n(self, max_count: int, comb: Sequence[int],
                    comb_inner: Sequence[int],
                    source_min: Sequence[int]) -> np.ndarray:
         """Combinatorial multi-source spectrum (kmer.spec.sh.n semantics,
         src/suffix_hash.c:335-425), the shards' summed."""
-        return np.sum([s.spectrum_n(max_count, comb, comb_inner, source_min)
-                       for s in self.shards], axis=0)
+        return self._summed([s.spectrum_n(max_count, comb, comb_inner,
+                                          source_min) for s in self.shards])
 
     def lookup(self, q_raw: torch.Tensor) -> torch.Tensor:
         """Count rows for raw queries, int32 [n, counts_n] on the store's
         device, zeros for absent k-mers: the shards' lookups summed (a key
-        is found in its owner shard only)."""
+        is found in its owner shard only), then over the ranks."""
         q = q_raw.to(self.device).reshape(-1)
         out = torch.zeros((q.shape[0], self.counts_n), dtype=torch.int32,
                           device=self.device)
         for s in self.shards:
             out += s.lookup(q)
+        if self.mesh.distributed:
+            summed = self.mesh.all_sum(out.cpu().numpy().reshape(-1))
+            out = torch.from_numpy(summed.reshape(tuple(out.shape))).to(
+                self.device, torch.int32)
         return out
 
     # -- restore --------------------------------------------------------------
     def set_tables(self, tables: Sequence[Run]) -> "ShardedCountStore":
-        """Install one base table per shard (sortable keys [n_d], int64 count
-        rows [n_d, counts_n]), sorted and reduced here; the checkpoint's
-        restore. Raises if a key does not belong to its shard."""
+        """Install the base tables of all D shards (sortable keys [n_d],
+        int64 count rows [n_d, counts_n], on any device), sorted and reduced
+        here; the checkpoint's restore. A rank installs its own shards'.
+        Raises if a key does not belong to its shard."""
         if len(tables) != self.n_shards:
             raise ValueError(f"{len(tables)} tables for {self.n_shards} "
                              f"shards")
-        for d, (shard, (keys, cnt)) in enumerate(zip(self.shards, tables)):
+        for shard, d in zip(self.shards, self.mesh.local_shards):
+            keys, cnt = tables[d]
             keys = keys.to(self.device)
             cnt = cnt.to(self.device, torch.int64).reshape(-1, self.counts_n)
             if keys.shape[0] != cnt.shape[0]:
@@ -370,12 +406,17 @@ class ShardedKmerIndex:
     come from a second copy re-sharded by key range
     (:meth:`_range_partitioned`), emitted shard by shard in key order:
     they equal the single index's. Queries search every hash shard.
-    Tensors come back on the group's device.
+    Tensors come back on the group's device. The index is built in one
+    process: a group that spans processes raises.
     """
 
     def __init__(self, seq, k: int, mesh: ShardGroup,
                  capacity_factor: float = 2.0,
                  drop_trailing_exact_k: bool = True):
+        if mesh.distributed:
+            raise NotImplementedError(
+                "the sharded position index over several processes is not "
+                "built yet: use a group of one process")
         if not 1 <= k <= MAX_K:
             raise ValueError("k must be in 1..32")
         seq = as_sequence(seq)

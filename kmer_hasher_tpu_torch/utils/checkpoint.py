@@ -22,6 +22,13 @@ and ``total_added``. Such a file, from either package, loads onto a shard
 group of the same size (``load_count_store(path, mesh=)``), or folded into
 one store without ``mesh``. The restored shard tables are installed whole:
 no restored run is cut short.
+
+Over a shard group that spans processes, as in the JAX package, saving is
+collective: every rank folds its own shards, rank 0 gathers the D tables
+and writes the file, and a barrier follows, so the file is complete when
+any rank returns. Loading onto such a group reads the file on every rank
+(a directory they share) and installs each rank's own shards; rank 0 holds
+the file's ``total_added``.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch
 from ..index.count_store import CountStore, reduce_rows
 from ..index.position_index import KmerIndex, resolve_device
 from ..ops import encode as enc
+from ..parallel import distributed
 
 _MAGIC = "kmer_hasher_tpu"
 _VERSION = 1
@@ -133,21 +141,30 @@ def save_count_store(store, path, progress=None) -> None:
 
 
 def _save_sharded_count_store(store, path, progress=None) -> None:
-    n = store.n_unique  # folds every shard first
+    n = store.n_unique  # folds every shard first (gathered: a collective)
+    total = store.total_added  # summed over the ranks: a collective
     meta = {
         "magic": _MAGIC, "version": _VERSION, "kind": "sharded_count_store",
         "k": store.k, "counts_n": store.counts_n, "n_shards": store.n_shards,
         "capacity": store.capacity, "n_unique": [int(v) for v in n],
         "progress": progress,
     }
-    lanes = [_lanes(s.keys, s.cnt) for s in store.shards]
-    np.savez_compressed(
-        path, meta=json.dumps(meta),
-        u_hi=np.concatenate([a[0] for a in lanes]),
-        u_lo=np.concatenate([a[1] for a in lanes]),
-        cnt=np.concatenate([a[2] for a in lanes]).reshape(-1, store.counts_n),
-        total_added=store.total_added,
-    )
+    keys = torch.cat([s.keys for s in store.shards]).cpu()
+    cnt = torch.cat([s.cnt for s in store.shards]).cpu()
+    mesh = store.mesh
+    if mesh.distributed:
+        per = mesh.size // mesh.process_count
+        rows = n.reshape(mesh.process_count, per).sum(1).tolist()
+        keys_all = distributed.gather_rows(keys, rows)
+        cnt_all = distributed.gather_rows(cnt, rows)
+        if keys_all is not None:
+            keys, cnt = torch.cat(keys_all), torch.cat(cnt_all)
+    if mesh.process_index == 0:
+        u_hi, u_lo, c = _lanes(keys, cnt)
+        np.savez_compressed(
+            path, meta=json.dumps(meta), u_hi=u_hi, u_lo=u_lo,
+            cnt=c.reshape(-1, store.counts_n), total_added=total)
+    mesh.barrier()
 
 
 def _load_sharded_count_store(z, meta, mesh):
@@ -168,15 +185,15 @@ def _load_sharded_count_store(z, meta, mesh):
     cnt = np.asarray(z["cnt"]).reshape(-1, counts_n).astype(np.int64)
     if raw.shape[0] != offs[-1] or cnt.shape[0] != offs[-1]:
         raise ValueError("the shard tables do not match n_unique")
-    dev = store.device
-    store.set_tables([
-        (enc.sortable_key(torch.from_numpy(raw[a:b]).to(dev)),
-         torch.from_numpy(cnt[a:b]).to(dev))
+    store.set_tables([  # on the host: each rank uploads its own shards
+        (enc.sortable_key(torch.from_numpy(raw[a:b])),
+         torch.from_numpy(cnt[a:b]))
         for a, b in zip(offs[:-1], offs[1:])])
     total = np.asarray(z["total_added"], np.int64).reshape(-1)
     if total.shape[0] != counts_n:
         raise ValueError("total_added must have counts_n entries")
-    store._total_added = total.copy()
+    store._total_added = (total.copy() if mesh.process_index == 0
+                          else np.zeros_like(total))
     return store
 
 

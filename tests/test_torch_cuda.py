@@ -1122,3 +1122,77 @@ def test_b1_sharded_build_rows(cuda, k):
             cuda))
         assert torch.equal(key, pk) and torch.equal(valid, pv)
         assert not valid[torch.from_numpy(lengths <= 0).to(cuda)].any()
+
+
+RANK_WORKER = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from kmer_hasher_tpu_torch import api
+from kmer_hasher_tpu_torch.parallel import make_mesh
+rdzv, rank, fq, out = sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5]
+api.init_distributed(rdzv, world_size=2, rank=rank)
+mesh = make_mesh(8, distributed=True)
+st = api.count_kmers_fq_sh_rp(fq, k=21, min_q=20, exact_ll="hybrid",
+                              mesh=mesh, batch_rows=1024)
+rec = {"device": str(st.device), "spectrum": st.spectrum(100).tolist(),
+       "total": st.total_added.tolist(), "reads": st.timings["file_reads"]}
+np.savez(out + f".r{rank}.npz", **{
+    f"{c}{d}": t.cpu().numpy() for d, s in zip(mesh.local_shards, st.shards)
+    for c, t in (("k", s.keys), ("c", s.cnt))})
+print(json.dumps(rec))
+"""
+
+
+def test_two_ranks_on_the_card_match_one_process(cuda, tmp_path):
+    """Two gloo ranks sharing the card count one FASTQ by byte ranges
+    (route (b)) into 8 shards: every shard, the spectrum and total_added
+    equal the one-process store on the card."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    from kmer_hasher_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(911)
+    rows, L = 6000, 151
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (rows, L))]
+    qual = rng.integers(35, 74, (rows, L)).astype(np.uint8)
+    fq = tmp_path / "r.fq"
+    fq.write_bytes(b"".join(b"@r%d\n%s\n+\n%s\n" % (
+        i, seq[i].tobytes(), qual[i].tobytes()) for i in range(rows)))
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    (tmp_path / "w.py").write_text(RANK_WORKER)
+    procs = [subprocess.Popen(
+        [sys.executable, str(tmp_path / "w.py"), str(repo),
+         f"file://{tmp_path / 'rdzv'}", str(r), str(fq),
+         str(tmp_path / "out")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=dict(os.environ))
+        for r in range(2)]
+    try:
+        res = [p.communicate(timeout=300) for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        pytest.fail("the ranks did not finish in 300 s")
+    for p, (o, e) in zip(procs, res):
+        assert p.returncode == 0, e[-3000:]
+    one = api.count_kmers_fq_sh_rp(str(fq), k=21, min_q=20,
+                                   exact_ll="hybrid", mesh=make_mesh(8),
+                                   batch_rows=1024)
+    recs = [json.loads(o.strip().splitlines()[-1]) for o, _e in res]
+    assert sum(r["reads"] for r in recs) == rows
+    for r in recs:
+        assert r["device"].startswith("cuda")
+        assert r["spectrum"] == one.spectrum(100).tolist()
+        assert r["total"] == one.total_added.tolist()
+    for rank in range(2):
+        with np.load(tmp_path / f"out.r{rank}.npz") as z:
+            for d in range(4 * rank, 4 * rank + 4):
+                assert np.array_equal(z[f"k{d}"],
+                                      one.shards[d].keys.cpu().numpy())
+                assert np.array_equal(z[f"c{d}"],
+                                      one.shards[d].cnt.cpu().numpy())

@@ -153,6 +153,10 @@ assert kmer_pairs_sharded(six, six).shape[0] > 0
 for name in ("probes.dma_probes_r3", "probes.cuda_probes_dma",
              "parallel.mesh", "parallel.sharded"):
     assert "kmer_hasher_tpu_torch." + name in sys.modules, name
+# several processes: one process is rank 0 of 1 and reads every record
+assert api.init_distributed()["process_count"] == 1
+assert api.host_read_slice(10) == slice(0, 10)
+assert "kmer_hasher_tpu_torch.parallel.distributed" in sys.modules
 import chip_smoke  # the smoke script's own imports (it runs only as main)
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
@@ -178,7 +182,8 @@ def test_sources_name_no_jax():
     assert {"merge_sort.py", "cuda_merge.py", "cuda_probes.py",
             "sort_probes.py", "cuda_probes_r3.py", "sort_probes_r3.py",
             "__main__.py", "params.py", "native.py", "dma_probes_r3.py",
-            "cuda_probes_dma.py", "mesh.py", "sharded.py"} <= names
+            "cuda_probes_dma.py", "mesh.py", "sharded.py",
+            "distributed.py"} <= names
     for path in sources + [REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             s = line.strip()
