@@ -10,8 +10,8 @@ command line over the native reader, end to end.
 
     python3 chip_smoke.py          # from the root of a checkout
 
-(``--rank SPEC RANK`` runs one rank of the sharded_procs phase; the phase
-starts its ranks so.)
+(``--rank SPEC RANK`` runs one rank of the sharded_procs or the
+sharded_index_procs phase; the phases start their ranks so.)
 
 Phases, each printing its own lines; any failure raises and the exit code
 is nonzero:
@@ -64,6 +64,19 @@ is nonzero:
              index of the query stretch equal the single index's; the k=32
              build and its range partition under KMH_MERGE_SORT=1 equal
              the flag-off shards (B3: the merge rounds of the 16 sorts);
+   main (sharded index procs) — the same path over several processes:
+             gloo ranks of this script (``--rank SPEC RANK``) sharing the
+             card, each through ShardedKmerIndex(seq, 32, make_mesh(8,
+             distributed=True)): 2 ranks on the 40,000,000 bases, then 4
+             ranks on 2^22 + 1 bases (ranks 2 and 3 encode no window);
+             each rank's sha256 digests of its tables, pair drain,
+             lookups, query rows and cross-index pairs equal the single
+             KmerIndex's, its hash and range shards (flag off and on) the
+             one-process 8-shard index's, timed before and after the ranks;
+             the slowest rank's walls and each rank's exchange and gather
+             seconds and bytes; launches counted in the ranks (path
+             sharded_index_procs: B1 once a build and once a query on every
+             rank, B3 the merge rounds under the flag);
    main (merge sort) — build_index_arrays at 2^26 windows for k=32 and
              k=21 with KMH_MERGE_SORT=1, bitwise equal to the flag-off
              result, and the 40,000,000-base make_kmer_hash(k=32) with its
@@ -82,7 +95,8 @@ is nonzero:
              where hybrid flags reads and re-scans them in f64, against
              exact. Kernel launches are counted per path (index, merge-sort
              index, counting, file, threshold, probes, spill, probes_r3,
-             cli, probes_dma, sharded, sharded_index, sharded_procs), set
+             cli, probes_dma, sharded, sharded_index, sharded_procs,
+             sharded_index_procs), set
              to 0 just before each (in the ranks: at their start) and read
              just after, and with them the rows B3 merged;
    main (sharded) — the counting cell's reads through
@@ -168,6 +182,7 @@ is nonzero:
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports neither JAX nor kmer_hasher_tpu.
 """
+import hashlib
 import json
 import os
 import statistics
@@ -440,13 +455,26 @@ def phase_kernels(rng):
             cases.append((f"the sharded build's [{SHARDS}, {chunk} + halo] of "
                           f"{n:,} bases, lengths {lengths.tolist()}", rows,
                           lengths))
+        # the build over processes: each rank's own rows of the batch, a
+        # rank past the end with every length <= 0 (no window to find)
+        no_windows = set()
+        for P, n in IX_PROCS:
+            chunk = 1 << max(4, (-(-n // SHARDS) - 1).bit_length())
+            for r in range(P):
+                mine = range(r * SHARDS // P, (r + 1) * SHARDS // P)
+                rows, lengths = chunk_rows(x[:n], SHARDS, chunk, k, dev, mine)
+                what = (f"rank {r} of {P}'s [{len(mine)}, {chunk} + halo] of "
+                        f"{n:,} bases, lengths {lengths.tolist()}")
+                cases.append((what, rows, lengths))
+                if int(lengths.max()) < k:
+                    no_windows.add(what)
         for what, inp, t in cases:
             key, valid = b1.encode(inp, k, t)
             pk, pv = b1.plain(inp, k, torch.as_tensor(t, device=dev))
             torch.cuda.synchronize()
             err = max(max_abs_err(key, pk), max_abs_err(valid, pv))
             worst = max(worst, err)
-            if err or not bool(valid.any()):
+            if err or (not bool(valid.any()) and what not in no_windows):
                 raise AssertionError(
                     f"B1 disagrees with its plain version: k={k}, {what}, "
                     f"max_abs_err={err}")
@@ -460,7 +488,9 @@ def phase_kernels(rng):
         f"{tile + 1} bytes; N at every tile's first and last byte and in "
         f"the halo; the sharded index's build batches ({SHARDS} chunks of "
         f"{SH_CHUNK:,} of {SEQ_LEN:,} bases and of 16 of 40 bases: lengths "
-        f"<= 0, halos in the padding) (max_abs_err {worst})")
+        f"<= 0, halos in the padding) and each rank's rows of them over "
+        f"processes ({', '.join(f'{P} ranks on {n:,} bases' for P, n in IX_PROCS)}"
+        f"; a rank past the end) (max_abs_err {worst})")
     # inputs shorter than a chunk or than k: rows of 1-17 bytes (several in
     # one chunk, each thread's row found by division), per-row lengths and
     # one length for every row; 1-D inputs of 1-20 bytes from byte offsets
@@ -3185,6 +3215,8 @@ def rank_worker(spec_path: str, rank: int) -> None:
     from kmer_hasher_tpu_torch import counting
 
     spec = json.loads(Path(spec_path).read_text())
+    if spec.get("kind") == "index":
+        return index_rank_worker(spec, rank)
     info = api.init_distributed(spec["rdzv"], world_size=spec["P"],
                                 rank=rank)
     mesh = make_mesh(SHARDS, distributed=True)
@@ -3237,11 +3269,12 @@ def rank_worker(spec_path: str, rank: int) -> None:
 
 
 def spawn_ranks(P: int, path, tmp: Path, name: str, ckpt=None,
-                parse_alone: bool = False) -> list:
+                parse_alone: bool = False, extra: dict = None) -> list:
     """P ranks of this script on the card over gloo (``--rank``); every
     rank must exit 0 within PROCS_TIMEOUT, else every rank is killed and
-    this raises. Returns (each rank's record, its tables' file, the seconds
-    from the spawn to the last exit)."""
+    this raises. ``extra`` goes into the ranks' spec as it is. Returns
+    (each rank's record, its tables' file, the seconds from the spawn to
+    the last exit)."""
     out = tmp / f"procs_{name}"
     out.mkdir()
     spec = out / "spec.json"
@@ -3249,7 +3282,7 @@ def spawn_ranks(P: int, path, tmp: Path, name: str, ckpt=None,
         "P": P, "path": [str(p) for p in path] if isinstance(path, list)
         else str(path), "out": str(out), "ckpt": ckpt and str(ckpt),
         "parse_alone": parse_alone,
-        "rdzv": f"file://{out / 'rendezvous'}"}))
+        "rdzv": f"file://{out / 'rendezvous'}", **(extra or {})}))
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
@@ -3264,14 +3297,14 @@ def spawn_ranks(P: int, path, tmp: Path, name: str, ckpt=None,
         for p in procs:
             p.kill()
             p.communicate()
-        raise AssertionError(f"sharded_procs {name}: the {P} ranks did not "
-                             f"finish in {PROCS_TIMEOUT} s")
+        raise AssertionError(f"ranks {name}: the {P} ranks did not finish "
+                             f"in {PROCS_TIMEOUT} s")
     secs = time.perf_counter() - t0
     bad = [f"rank {r} exited with {p.returncode}:\n{o[-1000:]}\n{e[-3000:]}"
            for r, (p, (o, e)) in enumerate(zip(procs, res))
            if p.returncode != 0]
     if bad:
-        raise AssertionError(f"sharded_procs {name}: " + "\n".join(bad))
+        raise AssertionError(f"ranks {name}: " + "\n".join(bad))
     recs = [json.loads(o.strip().splitlines()[-1]) for o, _e in res]
     return [(rec, out / f"r{rec['rank']}.npz") for rec in recs], secs
 
@@ -3439,6 +3472,320 @@ def phase_main_sharded_procs(fq: Path, fq50: Path, single_big, single_wall,
     return tuple(total), summary
 
 
+# the sharded index over processes: (ranks, bases) of each spawn. 2^22 + 1
+# bases make chunks of 2^20 whose fifth holds one base, so ranks 2 and 3
+# of 4 encode no window
+IX_PROCS = ((2, SEQ_LEN), (4, PREFIX + 1))
+IX_BUILDS, IX_QUERIES = 4, 1  # B1 launches a rank: k=32, k=21, query, flag
+
+
+class Digest:
+    """sha256 of tensors' bytes in the order given, however they are cut
+    into chunks, with the rows counted."""
+
+    def __init__(self):
+        self.h, self.rows = hashlib.sha256(), 0
+
+    def add(self, t: torch.Tensor) -> "Digest":
+        self.h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        self.rows += int(t.shape[0])
+        return self
+
+    def value(self) -> str:
+        return f"{self.rows}:{self.h.hexdigest()[:32]}"
+
+
+def digest(*tensors) -> str:
+    d = Digest()
+    for t in tensors:
+        d.add(t)
+    return d.value()
+
+
+def shard_digests(shards) -> list:
+    return [digest(s.s_key, s.s_pos) for s in shards]
+
+
+def index_rank_worker(spec: dict, rank: int) -> None:
+    """One gloo rank of ``phase_main_sharded_index_procs`` (``chip_smoke.py
+    --rank SPEC RANK`` with ``"kind": "index"``): the index cell's path
+    through ShardedKmerIndex on make_mesh(8, distributed=True) on the card,
+    each step timed between barriers, every output digested, launches
+    counted from 0; prints one JSON line."""
+    from kmer_hasher_tpu_torch import api
+    from kmer_hasher_tpu_torch.parallel import (ShardedKmerIndex,
+                                                kmer_pairs_sharded, make_mesh)
+    from kmer_hasher_tpu_torch.ops import cuda_encode as b1
+    from kmer_hasher_tpu_torch.ops import cuda_merge as b3
+
+    info = api.init_distributed(spec["rdzv"], world_size=spec["P"],
+                                rank=rank)
+    seq = np.load(spec["seq"])
+    q = torch.from_numpy(np.load(spec["q"])).cuda()
+    query = seq[QUERY_AT: QUERY_AT + QUERY_LEN]
+    mesh = make_mesh(SHARDS, distributed=True)
+    walls, dig = {}, {}
+
+    def step(name, fn):
+        return timed(walls, name, fn, mesh)
+
+    reset_launches()
+    sh = step("build", lambda: ShardedKmerIndex(seq, 32, mesh))
+    step("range_partition", sh._range_partitioned)
+
+    def tables_and_drain():
+        tabs = sh.tables(2 | 8)
+        pairs = Digest()
+        for chunk in sh.iter_pair_chunks():
+            pairs.add(chunk)
+        return tabs, pairs
+
+    tabs, pairs = step("tables_drain", tables_and_drain)
+    dig.update(pos=digest(tabs["pos"]), count=digest(tabs["count"]),
+               pairs=pairs.value(), hash_shards=shard_digests(sh.shards),
+               range_shards=shard_digests(sh._range_partitioned()))
+    del tabs
+    dig["lookup"] = digest(step("lookups", lambda: sh.lookup_counts(q)))
+    dig["positions"] = digest(step("positions", lambda: sh.positions_of(q)))
+    timings = {"k32": dict(sh.timings)}
+    n_valid = sh.n_valid.tolist()
+    flag_off = (dig["hash_shards"], dig["range_shards"])
+    sh.drop_range_partition()
+    del sh
+    sh21 = step("build_k21", lambda: ShardedKmerIndex(seq, 21, mesh))
+    rows = Digest()
+    for blk in step("seq_kmer_pos", lambda: list(
+            sh21.iter_seq_kmer_pos(query, 21))):
+        rows.add(blk)
+    dig["seq_kmer_pos"] = rows.value()
+    shq = ShardedKmerIndex(query, 21, mesh)
+    dig["kmer_pairs"] = digest(step("kmer_pairs", lambda: kmer_pairs_sharded(
+        sh21, shq)))
+    timings.update(k21=dict(sh21.timings), query=dict(shq.timings))
+    del sh21, shq
+    off = read_launches()
+    before = os.environ.get("KMH_MERGE_SORT")
+    os.environ["KMH_MERGE_SORT"] = "1"
+    try:
+        flagged = step("build_flag", lambda: ShardedKmerIndex(seq, 32, mesh))
+        flagged_rp = flagged._range_partitioned()
+        torch.cuda.synchronize()
+    finally:
+        if before is None:
+            del os.environ["KMH_MERGE_SORT"]
+        else:
+            os.environ["KMH_MERGE_SORT"] = before
+    flag_same = (shard_digests(flagged.shards),
+                 shard_digests(flagged_rp)) == flag_off
+    rounds = sum(merge_rounds(s.n_valid) for s in flagged.shards + flagged_rp)
+    launches = read_launches()
+    rec = {"rank": rank, "info": info, "local": list(mesh.local_shards),
+           "device": str(flagged.device), "n_valid": n_valid, "walls": walls,
+           "digests": dig, "flag_same": flag_same, "rounds": rounds,
+           "launches": list(launches), "launches_flag_off": list(off),
+           "b3_rows": b3.merge.rows, "b1_positions": b1.encode.positions,
+           "timings": timings}
+    del flagged, flagged_rp
+    mesh.barrier()
+    print(json.dumps(rec), flush=True)
+
+
+def timed(walls: dict, name: str, fn, mesh=None):
+    """``fn()``, its seconds from a synchronised card (and, with ``mesh``,
+    a barrier of its ranks) to its work's end into ``walls[name]``."""
+    torch.cuda.synchronize()
+    if mesh is not None:
+        mesh.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t0
+    return out
+
+
+def one_process_index(seq: np.ndarray) -> tuple:
+    """The one-process 8-shard index of ``seq`` on the card and its walls:
+    build, range partition, tables(2|8) + drain."""
+    from kmer_hasher_tpu_torch.parallel import ShardedKmerIndex, make_mesh
+
+    walls = {}
+    sh = timed(walls, "build", lambda: ShardedKmerIndex(seq, 32,
+                                                        make_mesh(SHARDS)))
+    timed(walls, "range_partition", sh._range_partitioned)
+    timed(walls, "tables_drain", lambda: (sh.tables(2 | 8), sum(
+        c.shape[0] for c in sh.iter_pair_chunks())))
+    return sh, walls
+
+
+def index_answers(seq: np.ndarray, tmp: Path) -> tuple:
+    """The answers the ranks are held to: the single KmerIndex's tables,
+    pair drain, lookups of SH_LOOKUPS sampled keys (written for the ranks
+    with the sequence), k=21 query rows and cross-index pairs, digested.
+    Returns (the digests, the ranks' input files)."""
+    from kmer_hasher_tpu_torch import api
+    from kmer_hasher_tpu_torch.index.query import kmer_pairs
+    from kmer_hasher_tpu_torch.ops import encode as enc
+
+    query = seq[QUERY_AT: QUERY_AT + QUERY_LEN]
+    one = api.make_kmer_hash(seq, 32, device="cuda")
+    tabs = api.kmer_pos(one, 2 | 8)
+    pairs = Digest()
+    for chunk in one.iter_pair_chunks():
+        pairs.add(chunk)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 12)
+    pick = torch.randint(0, one.n_valid, (SH_LOOKUPS,), generator=gen,
+                         device="cuda")
+    q = torch.unique(enc.sortable_key(one.s_key[pick]))
+    lb, ub = one.lookup_range(q)
+    hits = ub - lb
+    g = torch.arange(int(hits.sum()), device="cuda")
+    cum = torch.cumsum(hits, 0)
+    w = torch.searchsorted(cum, g, right=True)
+    positions = torch.sort(one.s_pos[lb[w] + g - (cum[w] - hits[w])]).values
+    want = {"pos": digest(tabs["pos"]), "count": digest(tabs["count"]),
+            "pairs": pairs.value(), "lookup": digest(hits.to(torch.int32)),
+            "positions": digest(positions)}
+    del one, tabs
+    one21 = api.make_kmer_hash(seq, 21, device="cuda")
+    want["seq_kmer_pos"] = digest(api.seq_kmer_pos(one21, query, 21))
+    want["kmer_pairs"] = digest(kmer_pairs(one21, api.make_kmer_hash(
+        query, 21, device="cuda")))
+    del one21
+    files = {"seq": str(tmp / f"ix_seq_{seq.shape[0]}.npy"),
+             "q": str(tmp / f"ix_q_{seq.shape[0]}.npy")}
+    np.save(files["seq"], seq)
+    np.save(files["q"], q.cpu().numpy())
+    return want, files
+
+
+def phase_main_sharded_index_procs(seq: np.ndarray, card: str):
+    """The sharded position index over several processes: gloo ranks of
+    this script sharing the card (``--rank`` with ``"kind": "index"``), each
+    through ShardedKmerIndex(seq, 32, make_mesh(8, distributed=True)),
+    tables(2|8) and the full pair drain, lookup_counts and positions_of of
+    4,096 sampled keys, a k=21 index with seq_kmer_pos of the
+    1,000,000-base query and kmer_pairs_sharded against a sharded index of
+    the query stretch, and the k=32 build and range partition again under
+    KMH_MERGE_SORT=1: 2 ranks on the index cell's 40,000,000 bases (chunks
+    0-4 hold windows: rank 0's four chunks 33,554,432 bases, rank 1's
+    6,445,568), then 4 ranks on 2^22 + 1 bases (ranks 2 and 3 encode
+    none). Every rank's digests must equal the single KmerIndex's,
+    computed here, and
+    its hash and range shards the one-process 8-shard index's, which is
+    timed before and after the ranks. B1 launches once a build and once a
+    query on every rank, B3 the merge rounds of the rank's sorts under the
+    flag only (path sharded_index_procs, counted in the ranks from 0 and
+    summed)."""
+    total = [0] * len(counted_wrappers())
+    b3_rows = b1_positions = 0
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for P, n in IX_PROCS:
+            part = seq[:n]
+            want, files = index_answers(part, Path(tmp))
+            sh, before = one_process_index(part)
+            want_hash = shard_digests(sh.shards)
+            want_range = shard_digests(sh._range_partitioned())
+            want_nv = sh.n_valid.tolist()
+            del sh
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            ranks, spawn_s = spawn_ranks(P, files["seq"], Path(tmp),
+                                         f"index{P}", extra=dict(
+                                             files, kind="index"))
+            after = one_process_index(part)[1]
+            torch.cuda.empty_cache()
+            recs = [r for r, _f in ranks]
+            seen = []
+            for rec in recs:
+                r, dig = rec["rank"], rec["digests"]
+                bad = [key for key in want if dig[key] != want[key]]
+                for i, d in enumerate(rec["local"]):
+                    seen.append(d)
+                    if dig["hash_shards"][i] != want_hash[d]:
+                        bad.append(f"hash shard {d}")
+                    if dig["range_shards"][i] != want_range[d]:
+                        bad.append(f"range shard {d}")
+                if rec["n_valid"] != want_nv:
+                    bad.append("n_valid")
+                if not rec["flag_same"]:
+                    bad.append("the shards under KMH_MERGE_SORT=1")
+                if rec["device"].split(":")[0] != "cuda":
+                    bad.append(f"device {rec['device']}")
+                if bad:
+                    raise AssertionError(
+                        f"sharded_index_procs, {P} ranks, rank {r}: "
+                        f"{', '.join(bad)} differ from the single index's")
+                got, off = rec["launches"], rec["launches_flag_off"]
+                if (got[0] != IX_BUILDS + IX_QUERIES or off[2] != 0
+                        or got[2] != rec["rounds"] or not rec["rounds"]):
+                    raise AssertionError(
+                        f"sharded_index_procs, {P} ranks, rank {r}: B1 "
+                        f"launched {got[0]} times (want one a build, "
+                        f"{IX_BUILDS}, and one a query, {IX_QUERIES}), B3 "
+                        f"{off[2]} times with the flag off and {got[2]} in "
+                        f"all (want the {rec['rounds']} merge rounds of its "
+                        f"sorts under the flag)")
+                total = [a + b for a, b in zip(total, got)]
+                b3_rows += rec["b3_rows"]
+                b1_positions += rec["b1_positions"]
+            if sorted(seen) != list(range(SHARDS)):
+                raise AssertionError(f"sharded_index_procs: the {P} ranks "
+                                     f"own shards {sorted(seen)}")
+            slow = {key: max(r["walls"][key] for r in recs)
+                    for key in recs[0]["walls"]}
+            per_rank = [{
+                "rank": r["rank"], "local": r["local"], "walls": r["walls"],
+                "b1": r["launches"][0], "b3": r["launches"][2],
+                **{f"{name}_{key}": r["timings"][name].get(key, 0)
+                   for name in ("k32", "k21", "query")
+                   for key in ("exchange_s", "exchange_bytes", "gather_s",
+                               "gather_bytes", "exchanges", "gathers")}}
+                for r in recs]
+            summary[f"P{P}"] = {"bases": n, "slowest": slow,
+                                "spawn_s": spawn_s,
+                                "one_process": [before, after],
+                                "ranks": per_rank}
+            log(f"[main] sharded_index_procs: {P} gloo ranks on the card, "
+                f"ShardedKmerIndex(k=32, make_mesh({SHARDS}, "
+                f"distributed=True)) of {n:,} bases: every rank's tables(2|8), "
+                f"pair drain ({recs[0]['digests']['pairs'].split(':')[0]} "
+                f"rows), lookup_counts and positions_of of the sampled keys, "
+                f"k=21 seq_kmer_pos of the {QUERY_LEN:,}-base query and "
+                f"kmer_pairs_sharded against its index equal the single "
+                f"index's (sha256), its hash and range shards the "
+                f"one-process 8-shard index's, flag off and on; slowest "
+                f"rank: build {slow['build']:.4f} s, range partition "
+                f"{slow['range_partition']:.4f} s, tables + drain "
+                f"{slow['tables_drain']:.4f} s, k=21 build "
+                f"{slow['build_k21']:.4f} s, seq_kmer_pos "
+                f"{slow['seq_kmer_pos']:.4f} s, kmer_pairs_sharded "
+                f"{slow['kmer_pairs']:.4f} s, flag build "
+                f"{slow['build_flag']:.4f} s (spawn to exit {spawn_s:.1f} s); "
+                f"one process, 8 shards, in turns: build "
+                f"{before['build']:.4f} / {after['build']:.4f} s, range "
+                f"partition {before['range_partition']:.4f} / "
+                f"{after['range_partition']:.4f} s, tables + drain "
+                f"{before['tables_drain']:.4f} / {after['tables_drain']:.4f}"
+                f" s (before / after); "
+                + "; ".join(
+                    f"rank {r['rank']} (shards {r['local'][0]}-"
+                    f"{r['local'][-1]}): k=32 index exchange "
+                    f"{r['k32_exchange_s']:.4f} s / "
+                    f"{r['k32_exchange_bytes'] / 1e6:.1f} MB sent over "
+                    f"{r['k32_exchanges']}, gather {r['k32_gather_s']:.4f} s"
+                    f" / {r['k32_gather_bytes'] / 1e6:.1f} MB received over "
+                    f"{r['k32_gathers']}; k=21 exchange "
+                    f"{r['k21_exchange_bytes'] / 1e6:.1f} MB, gather "
+                    f"{r['k21_gather_bytes'] / 1e6:.1f} MB; B1 {r['b1']}, "
+                    f"B3 {r['b3']}" for r in per_rank)
+                + f" | {card}")
+    B3_ROWS["sharded_index_procs"] = b3_rows
+    B1_POSITIONS["sharded_index_procs"] = b1_positions
+    return tuple(total), summary
+
+
 def phase_card_vs_cpu_sharded(batches, tmp: Path) -> None:
     """8 shards on the card against 8 on the CPU: a spill budget below one
     run, to memory and to files; an 8-shard checkpoint round trip, and its
@@ -3563,10 +3910,11 @@ def bound(bytes_moved: float, ops: float):
 
 PATHS = ("index", "merge_sort_index", "counting", "file", "threshold",
          "probes", "spill", "probes_r3", "cli", "probes_dma", "sharded",
-         "sharded_index", "sharded_procs")
+         "sharded_index", "sharded_procs", "sharded_index_procs")
 # the paths whose B3 launches are rounds of a merge sort (32-bit payload),
 # not two-run merges of the count store (implicit payload)
-SORT_ROUND_PATHS = ("merge_sort_index", "probes_dma", "sharded_index")
+SORT_ROUND_PATHS = ("merge_sort_index", "probes_dma", "sharded_index",
+                    "sharded_index_procs")
 
 
 def main() -> None:
@@ -3602,6 +3950,8 @@ def main() -> None:
         raise AssertionError("the index path launched B3 with the flag off")
     launches["merge_sort_index"] = phase_main_merge_sort(seq)
     launches["sharded_index"] = phase_main_sharded_index(seq)
+    launches["sharded_index_procs"], ix_procs = \
+        phase_main_sharded_index_procs(seq, card)
     gen.manual_seed(SEED)
     genome = make_genome(gen)
     batches = [draw_reads(genome, gen, ROWS) for _ in range(N_BATCHES)]
@@ -3806,7 +4156,7 @@ def main() -> None:
             ("P10", "P10 probe_lane_gather", "probe_lane_gather.cu", 117,
              "full"),
         ), start=11)], "turns": turns, "file_entry": cli_stats,
-        "sharded_procs": procs_stats}))
+        "sharded_procs": procs_stats, "sharded_index_procs": ix_procs}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -19,8 +19,10 @@ Every entry that builds something takes a ``device`` and runs on the card
 card raises. Tables, query rows, count rows and depth tracks come back as
 tensors on that device; spectra are small float64 numpy arrays. Every
 name the JAX package's ``api`` exports is exported here, and with them
-``init_distributed`` and ``host_read_slice`` for counting over several
-processes (``parallel.distributed``).
+``init_distributed`` and ``host_read_slice`` for counting and for the
+sharded position index over several processes (``parallel.distributed``;
+``parallel.ShardedKmerIndex`` on ``parallel.make_mesh(D,
+distributed=True)``).
 """
 from __future__ import annotations
 

@@ -9,8 +9,10 @@ default, several ranks may share one card). :mod:`.sharded` holds
 over several (``count_kmers_fq_sh_rp(mesh=make_mesh(D, distributed=True))``
 and its three routes over files), and the sharded position index
 (``ShardedKmerIndex``, ``iter_kmer_pairs_sharded_chunks``,
-``kmer_pairs_sharded``), which is built in one process only: the index
-over several processes is not built yet.
+``kmer_pairs_sharded``), also in one process or over several
+(``ShardedKmerIndex(seq, k, make_mesh(D, distributed=True))``: every rank
+holds the whole sequence and builds its own shards, and every table and
+query gives every rank the one-process answer).
 """
 from .distributed import host_read_slice, init_distributed
 from .mesh import ShardGroup, make_hierarchical_mesh, make_mesh

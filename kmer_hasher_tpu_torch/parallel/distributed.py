@@ -100,6 +100,31 @@ def barrier() -> None:
         dist.barrier()
 
 
+def all_gather_rows(t: torch.Tensor, rows: Sequence[int],
+                    pin_memory: bool = False) -> List[torch.Tensor]:
+    """Every process receives every process's host tensor ``t`` (``rows[r]``
+    rows on rank r, the rest of its shape and its dtype the same
+    everywhere, a dtype gloo can send: bool viewed as bytes first) as a
+    list in rank order: the JAX package's ``_host_read`` of a sharded
+    array. One broadcast of exact length from each rank that holds rows,
+    so no rank pads its rows to another's length. ``pin_memory`` receives
+    into pinned memory (for a copy on to a card). In one process,
+    ``[t]``."""
+    if process_count() == 1:
+        return [t]
+    t = t.contiguous()
+    me = process_index()
+    out = []
+    for r in range(process_count()):
+        buf = t if r == me else torch.empty(
+            (int(rows[r]), *t.shape[1:]), dtype=t.dtype,
+            pin_memory=pin_memory)
+        if rows[r]:
+            dist.broadcast(buf, src=r)
+        out.append(buf)
+    return out
+
+
 def gather_rows(t: torch.Tensor, rows: Sequence[int]
                 ) -> Optional[List[torch.Tensor]]:
     """Rank 0 receives every process's host tensor ``t`` (``rows[r]`` rows

@@ -18,7 +18,9 @@ order), on the device it names. The same method then sends every rank its
 rows by ``all_to_all_single``: first the bucket sizes, then each column
 with exact split sizes (no capacity padding), staged through pinned host
 memory. Every rank must call it the same number of times, also with no
-rows, or the ranks wait on each other for ever.
+rows, or the ranks wait on each other for ever. :meth:`ShardGroup.gather_shards`
+gives every rank all D shards' tensors (the JAX package's ``_host_read``),
+under the same rule.
 """
 from __future__ import annotations
 
@@ -130,6 +132,45 @@ class ShardGroup:
         return [tuple(torch.cat([p[i] for p in per_rank])
                       for i in range(len(cols))) for per_rank in pieces]
 
+    def gather_shards(self, local: Sequence[torch.Tensor],
+                      rows: Sequence[int], stats: Optional[dict] = None
+                      ) -> List[torch.Tensor]:
+        """Every shard's tensor, the D of them in shard order, on every
+        rank: ``local`` holds this rank's, one for each of ``local_shards``
+        (of one dtype and one shape past the first axis on every rank, also
+        where a shard has no rows); ``rows`` are the D lengths, which every
+        rank must know. Other ranks' rows come through pinned host memory
+        onto the group's device; this rank's own are returned as given. In
+        one process, ``list(local)``. ``stats`` gains ``gathers``,
+        ``gather_s`` and ``gather_bytes`` (the bytes this rank received
+        from other ranks)."""
+        local = list(local)
+        if not self.distributed:
+            return local
+        t0 = time.perf_counter()
+        P, me = self.process_count, self.process_index
+        per = self.size // P
+        rows = [int(n) for n in rows]
+        dtype = local[0].dtype
+        blocks = distributed.all_gather_rows(
+            _to_host(torch.cat(local)),
+            [sum(rows[r * per:(r + 1) * per]) for r in range(P)],
+            pin_memory=self.device.type == "cuda")
+        out, got = [], 0
+        for r, blk in enumerate(blocks):
+            if r == me:
+                out.extend(local)
+                continue
+            got += blk.numel() * blk.element_size()
+            out.extend(torch.split(_from_host(blk, dtype, self.device),
+                                   rows[r * per:(r + 1) * per]))
+        if stats is not None:
+            stats["gathers"] = stats.get("gathers", 0) + 1
+            stats["gather_s"] = stats.get("gather_s", 0.0) + (
+                time.perf_counter() - t0)
+            stats["gather_bytes"] = stats.get("gather_bytes", 0) + got
+        return out
+
     def _all_to_all(self, order: torch.Tensor, sizes: List[int],
                     cols: Sequence[torch.Tensor]):
         """The process form of :meth:`exchange`: (for each local shard a
@@ -194,14 +235,19 @@ def make_mesh(n_devices: Optional[int] = None, device="cuda",
 
 def make_hierarchical_mesh(n_slices: int,
                            chips_per_slice: Optional[int] = None,
-                           device="cuda") -> ShardGroup:
-    """``n_slices`` x ``chips_per_slice`` (one if None) shards, routed flat.
-    The JAX package routes such a mesh in two stages, slices first over DCN
-    and then within a slice over ICI, to move cross-slice traffic in large
-    blocks; the shard a key lands in is the flat owner either way (slice
+                           device="cuda",
+                           distributed: bool = False) -> ShardGroup:
+    """``n_slices`` x ``chips_per_slice`` (one if None) shards, routed flat;
+    with ``distributed``, spread over the default process group's ranks as
+    :func:`make_mesh` spreads them (the JAX package builds its hierarchical
+    mesh from ``jax.devices()``, which span the processes). The JAX package
+    routes such a mesh in two stages, slices first over DCN and then within
+    a slice over ICI, to move cross-slice traffic in large blocks; the
+    shard a key lands in is the flat owner either way (slice
     ``owner // per_slice``, then ``owner % per_slice`` within it), so the
     two-stage routing changes no result and one exchange does the same."""
     per = 1 if chips_per_slice is None else int(chips_per_slice)
     if n_slices < 1 or per < 1:
         raise ValueError("slices and shards per slice must be at least 1")
-    return ShardGroup(n_slices * per, device, shape=(n_slices, per))
+    return ShardGroup(n_slices * per, device, shape=(n_slices, per),
+                      processes=distributed)

@@ -23,7 +23,9 @@ each with a (k-1)-base halo, encoded by kernel B1 in one launch, every
 window routed to its owner and each shard sorted by (k-mer, position);
 the tables from a copy re-sharded by sampled key ranges; queries over
 every shard; :func:`iter_kmer_pairs_sharded_chunks` and
-:func:`kmer_pairs_sharded` across two indexes.
+:func:`kmer_pairs_sharded` across two indexes. Over the processes of a
+group each rank builds its own shards, and every table and query is a
+collective that gives every rank the one-process answer.
 
 Left out of the JAX module, with the reason:
 
@@ -35,10 +37,10 @@ Left out of the JAX module, with the reason:
   ``capacity_factor``;
 * the program cache (``_LRU``, ``_shared_program``): eager PyTorch
   compiles no program per shape;
-* ``_global_put``, ``_globalize`` and ``_replicated``, and ``_host_read``
-  across processes: a process holds its own shards' tensors, and a read
-  across processes is one of the shard group's host collectives (the
-  count store's; the position index is built in one process only);
+* ``_global_put``, ``_globalize`` and ``_replicated``: a process holds
+  its own shards' tensors; ``_host_read`` across processes is
+  :meth:`~..parallel.mesh.ShardGroup.gather_shards` or one of the shard
+  group's other host collectives;
 * the trim of dead routing slots and key-only runs: a run here is its live
   rows only, as in the port's single store;
 * the allgather of every run on spill: each shard spills only its own rows,
@@ -344,20 +346,27 @@ class _Groups(NamedTuple):
 
 
 def chunk_rows(seq: torch.Tensor, n_shards: int, chunk: int, k: int,
-               device) -> Tuple[torch.Tensor, np.ndarray]:
-    """The sharded build's batch for B1: row d holds chunk d of the uint8
-    sequence ``seq`` padded with N to ``n_shards * chunk`` bases, then the
-    max(1, k-1) bases after it (its right neighbour's first bases; N past
-    the last chunk), [n_shards, chunk + halo] on ``device``; and each row's
-    length on the host, int32: min(len - d * chunk, chunk + halo), zero or
-    less for chunks past the end."""
+               device, shards: Optional[range] = None
+               ) -> Tuple[torch.Tensor, np.ndarray]:
+    """The sharded build's batch for B1: the row of shard d holds chunk d of
+    the uint8 sequence ``seq`` padded with N to ``n_shards * chunk`` bases,
+    then the max(1, k-1) bases after it (its right neighbour's first bases,
+    read from ``seq`` whichever rank owns that neighbour; N past the last
+    chunk), [len(shards), chunk + halo] on ``device``, for the shards in
+    ``shards`` (all of them by default; a rank passes its own); and each
+    row's length on the host, int32: min(len - d * chunk, chunk + halo),
+    zero or less for chunks past the end. Only the rows' bases go to the
+    device."""
+    shards = range(n_shards) if shards is None else shards
     halo = max(1, k - 1)
     L = int(seq.shape[0])
-    x = torch.full((n_shards * chunk + halo,), ord("N"), dtype=torch.uint8,
+    first = shards.start * chunk
+    x = torch.full((len(shards) * chunk + halo,), ord("N"), dtype=torch.uint8,
                    device=device)
-    x[:L] = seq
-    lengths = np.minimum(L - np.arange(n_shards, dtype=np.int64) * chunk,
-                         chunk + halo).astype(np.int32)
+    part = seq[first: first + x.shape[0]]
+    x[:part.shape[0]] = part
+    d = np.arange(shards.start, shards.stop, dtype=np.int64)
+    lengths = np.minimum(L - d * chunk, chunk + halo).astype(np.int32)
     return x.unfold(0, chunk + halo, chunk).contiguous(), lengths
 
 
@@ -369,9 +378,12 @@ def _sort_shard(raw: torch.Tensor, pos: torch.Tensor, k: int) -> Shard:
 
 def _same_group(a: ShardGroup, b: ShardGroup) -> bool:
     """Two groups are the same where they lay out as many shards the same
-    way on one device (the JAX package compares meshes by their devices)."""
-    return a is b or (a.size, a.shape, a.device) == (b.size, b.shape,
-                                                     b.device)
+    way on one device and over the same processes, this rank owning the
+    same shards in both (the JAX package compares meshes by their
+    devices)."""
+    def layout(g: ShardGroup):
+        return g.size, g.shape, g.device, g.process_count, g.process_index
+    return a is b or layout(a) == layout(b)
 
 
 def _row_keys(rows: torch.Tensor) -> torch.Tensor:
@@ -397,26 +409,38 @@ class ShardedKmerIndex:
     is not the trailing-exact-k quirk's. Every window goes to the shard
     :func:`owner_hash` of its raw key names
     (:meth:`~..parallel.mesh.ShardGroup.exchange`), where the rows are
-    sorted by (k-mer, position). ``shards[d]`` is shard d at its exact
-    length on ``mesh.device``; ``n_valid`` the shards' lengths (int64
-    [D]). Nothing is padded to a capacity: ``capacity_factor`` is accepted
-    and ignored.
+    sorted by (k-mer, position). ``shards[i]`` is shard
+    ``mesh.local_shards[i]`` at its exact length on ``mesh.device``;
+    ``n_valid`` the lengths of all D shards (int64 [D]). Nothing is padded
+    to a capacity: ``capacity_factor`` is accepted and ignored.
 
     Tables (``kmer_strings``, ``counts``, ``pos_table``, the pair stream)
     come from a second copy re-sharded by key range
     (:meth:`_range_partitioned`), emitted shard by shard in key order:
     they equal the single index's. Queries search every hash shard.
-    Tensors come back on the group's device. The index is built in one
-    process: a group that spans processes raises.
+    Tensors come back on the group's device.
+
+    Over a group that spans processes every rank holds the whole host
+    sequence, as in the JAX package, and encodes, routes and sorts only its
+    own shards: its rows of the batch (each with its halo, whichever rank
+    owns the neighbour chunk) in one B1 launch, also where they all lie
+    past the end; positions stay global. Every read is then a collective
+    that gives every rank the one-process answer: the splitters from the
+    shards' samples gathered to every rank, the range shards' sizes and
+    k-mer rank bases from one allgather, every table gathered in shard
+    order, the pair stream chunk by chunk from the rank owning its shard,
+    lookups summed, and every query stream round by round, each round's
+    chunks gathered to every rank, so that every rank merges the same
+    streams. The number of rounds follows from allgathered totals, so the
+    ranks stay in step as long as every rank makes the same calls in the
+    same order, which it must. ``timings`` holds the routes and their
+    seconds, the exchange's seconds and the bytes it sent to other ranks,
+    and the gathers' seconds and the bytes this rank received.
     """
 
     def __init__(self, seq, k: int, mesh: ShardGroup,
                  capacity_factor: float = 2.0,
                  drop_trailing_exact_k: bool = True):
-        if mesh.distributed:
-            raise NotImplementedError(
-                "the sharded position index over several processes is not "
-                "built yet: use a group of one process")
         if not 1 <= k <= MAX_K:
             raise ValueError("k must be in 1..32")
         seq = as_sequence(seq)
@@ -436,53 +460,71 @@ class ShardedKmerIndex:
                 quirk = a + 1
         self._quirk_pos = quirk
         self.chunk = 1 << max(4, (-(-L // D) - 1).bit_length())
+        self.timings = {"routes": 0, "route_s": 0.0, "exchanges": 0,
+                        "exchange_s": 0.0, "exchange_bytes": 0, "gathers": 0,
+                        "gather_s": 0.0, "gather_bytes": 0}
         self.shards = self._build(seq)
-        self.n_valid = np.array([s.n_valid for s in self.shards], np.int64)
+        self.n_valid = mesh.allgather([s.n_valid for s in self.shards]
+                                      ).reshape(-1)
         self.total_kmers = int(self.n_valid.sum())
         self.drop_range_partition()
 
     def _build(self, seq: np.ndarray) -> List[Shard]:
         k, D, Lc, dev = self.k, self.n_shards, self.chunk, self.device
-        rows, lengths = chunk_rows(torch.from_numpy(seq), D, Lc, k, dev)
+        mine = self.mesh.local_shards
+        rows, lengths = chunk_rows(torch.from_numpy(seq), D, Lc, k, dev, mine)
         raw, valid = enc.encode_stream(rows, k, lengths, canonical=False,
                                        drop_trailing_exact_k=False)
-        pos = torch.arange(1, D * Lc + 1, dtype=torch.int32,
-                           device=dev).view(D, Lc)
+        pos = torch.arange(mine.start * Lc + 1, mine.stop * Lc + 1,
+                           dtype=torch.int32, device=dev).view(len(mine), Lc)
         # windows that start in their own chunk, and not the quirk's
         live = valid[:, :Lc] & (pos != self._quirk_pos)
         raw, pos = raw[:, :Lc][live], pos[live]
         owner = owner_hash(*enc.split_hi_lo(raw), D)
-        return [_sort_shard(r, p, k)
-                for r, p in self.mesh.exchange(owner, raw, pos)]
+        return [_sort_shard(r, p, k) for r, p in self._route(owner, raw, pos)]
+
+    def _route(self, owner: torch.Tensor, *cols: torch.Tensor) -> list:
+        """The group's exchange, timed into ``timings``."""
+        t0 = time.perf_counter()
+        out = self.mesh.exchange(owner, *cols, stats=self.timings)
+        self.timings["routes"] += 1
+        self.timings["route_s"] += time.perf_counter() - t0
+        return out
+
+    def _gather(self, local: Sequence[torch.Tensor], rows) -> List[torch.Tensor]:
+        """All D shards' tensors from this rank's (``rows`` their D
+        lengths, known to every rank), gathers timed into ``timings``."""
+        return self.mesh.gather_shards(local, rows, stats=self.timings)
 
     # -- the key-range copy ---------------------------------------------------
     def _splitters(self) -> torch.Tensor:
         """D-1 sortable keys cutting the key space into D ranges: S keys
-        sampled from each hash shard at ``(arange(S) * n) // S``, pooled and
-        sorted, then keys[(i+1) * len // D]. An empty shard gives S copies
-        of the all-ones key (the JAX package reads its shard's invalid tail
-        there: the all-ones key too for k > 16, raw 0xFFFFFFFF for k <= 16,
-        its packed form); the tables are the same either way, as range
-        shards are emitted in key order."""
+        sampled from each hash shard at ``(arange(S) * n) // S``, pooled
+        from every rank and sorted, then keys[(i+1) * len // D]. An empty
+        shard gives S copies of the all-ones key (the JAX package reads its
+        shard's invalid tail there: the all-ones key too for k > 16, raw
+        0xFFFFFFFF for k <= 16, its packed form); the tables are the same
+        either way, as range shards are emitted in key order."""
         D, dev = self.n_shards, self.device
         idx = torch.arange(SAMPLES, dtype=torch.int64, device=dev)
         samples = [s.s_key[idx * s.n_valid // SAMPLES] if s.n_valid
                    else torch.full((SAMPLES,), _LAST, dtype=torch.int64,
                                    device=dev) for s in self.shards]
-        keys = torch.sort(torch.cat(samples)).values
+        keys = torch.sort(torch.cat(self._gather(samples,
+                                                 [SAMPLES] * D))).values
         n = keys.shape[0]
         return keys[torch.tensor([(i + 1) * n // D for i in range(D - 1)],
                                  dtype=torch.int64, device=dev)]
 
     def _range_partitioned(self, splitters: Optional[torch.Tensor] = None
                            ) -> List[Shard]:
-        """The index re-sharded by key range, so that emitting the shards
-        in order is emitting in key order: row r goes to the shard
-        ``searchsorted(splitters, key, right)`` names, so every copy of a
-        key lands in one shard. Cached, with its splitters in ``_rp_spl``.
-        ``splitters`` (sortable keys [D-1]) partitions into another
-        index's intervals (:func:`iter_kmer_pairs_sharded_chunks`) and is
-        not cached."""
+        """This rank's shards of the index re-sharded by key range, so that
+        emitting the shards in order is emitting in key order: row r goes to
+        the shard ``searchsorted(splitters, key, right)`` names, so every
+        copy of a key lands in one shard. Cached, with its splitters in
+        ``_rp_spl``. ``splitters`` (sortable keys [D-1]) partitions into
+        another index's intervals (:func:`iter_kmer_pairs_sharded_chunks`)
+        and is not cached."""
         if splitters is None and self._rp is not None:
             return self._rp
         spl = self._splitters() if splitters is None else splitters
@@ -490,7 +532,7 @@ class ShardedKmerIndex:
         pos = torch.cat([s.s_pos for s in self.shards])
         owner = torch.searchsorted(spl, keys, right=True)
         rp = [_sort_shard(enc.sortable_key(r), p, self.k)
-              for r, p in self.mesh.exchange(owner, keys, pos)]
+              for r, p in self._route(owner, keys, pos)]
         if splitters is None:
             self._rp, self._rp_spl = rp, spl
         return rp
@@ -502,64 +544,87 @@ class ShardedKmerIndex:
         self._rp: Optional[List[Shard]] = None
         self._rp_spl: Optional[torch.Tensor] = None
         self._rp_stats: Optional[List[_Groups]] = None
+        self._rp_sizes: Optional[np.ndarray] = None
 
     def _rp_group_stats(self) -> List[_Groups]:
-        """Each range shard's segment statistics, the k-mer ranks made
-        global by the distinct counts of the shards before it (cached)."""
+        """This rank's range shards' segment statistics (cached), the k-mer
+        ranks made global by the distinct counts of the shards before it.
+        Fills ``_rp_sizes``, int64 [D, 3]: every range shard's rows,
+        distinct k-mers and pairs, from one allgather."""
         if self._rp_stats is None:
-            stats, base = [], 0
-            for s in self._range_partitioned():
+            rp, local = self._range_partitioned(), []
+            for s in rp:
                 n = s.n_valid
                 starts = srt.segment_starts(s.s_key, torch.ones_like(
                     s.s_key, dtype=torch.bool))
                 counts, i_col, _rank, m, cum_m = _group_stats(
                     s.s_pos, n, starts, srt.segment_ids(starts))
                 n_u = int(starts.sum())
-                stats.append(_Groups(counts[:n_u], i_col + base, m, cum_m,
-                                     starts, n_u,
-                                     int(cum_m[-1]) if n else 0))
-                base += n_u
-            self._rp_stats = stats
+                local.append(_Groups(counts[:n_u], i_col, m, cum_m, starts,
+                                     n_u, int(cum_m[-1]) if n else 0))
+            sizes = self.mesh.allgather([
+                v for s, g in zip(rp, local)
+                for v in (s.n_valid, g.n_unique, g.n_pairs)]).reshape(-1, 3)
+            base = np.concatenate([[0], np.cumsum(sizes[:, 1])])
+            self._rp_sizes = sizes
+            self._rp_stats = [g._replace(i_col=g.i_col + int(base[d]))
+                              for d, g in zip(self.mesh.local_shards, local)]
         return self._rp_stats
 
     # -- kmer.pos table family (src/kmer_hash.c:1054-1147) ------------------
     @property
     def n_kmers(self) -> int:
-        return sum(g.n_unique for g in self._rp_group_stats())
+        self._rp_group_stats()
+        return int(self._rp_sizes[:, 1].sum())
 
     @property
     def total_pairs(self) -> int:
-        return sum(g.n_pairs for g in self._rp_group_stats())
+        self._rp_group_stats()
+        return int(self._rp_sizes[:, 2].sum())
 
     def kmer_strings(self) -> List[str]:
         """The distinct k-mers decoded, in key order."""
-        u_key = torch.cat([_unique_compact(s.s_key, g.starts) for s, g in
-                           zip(self._range_partitioned(),
-                               self._rp_group_stats())])
+        stats = self._rp_group_stats()
+        u_key = torch.cat(self._gather(
+            [_unique_compact(s.s_key, g.starts)
+             for s, g in zip(self._range_partitioned(), stats)],
+            self._rp_sizes[:, 1]))
         chars = _NUC[_decode_kmers(u_key, self.k).cpu().numpy()]
         return [bytes(row).decode("ascii") for row in chars]
 
     def counts(self) -> torch.Tensor:
         """int32 occurrence count of each distinct k-mer, in key order."""
-        return torch.cat([g.counts for g in self._rp_group_stats()])
+        stats = self._rp_group_stats()
+        return torch.cat(self._gather([g.counts for g in stats],
+                                      self._rp_sizes[:, 1]))
 
     def pos_table(self) -> torch.Tensor:
         """[total_kmers, 2] int32 (i, pos): i the global 1-based k-mer
         rank, pos the 1-based window start; the single index's table."""
-        return torch.cat([torch.stack([g.i_col, s.s_pos], dim=1)
-                          for s, g in zip(self._range_partitioned(),
-                                          self._rp_group_stats())])
+        stats = self._rp_group_stats()
+        return torch.cat(self._gather(
+            [torch.stack([g.i_col, s.s_pos], dim=1)
+             for s, g in zip(self._range_partitioned(), stats)],
+            self._rp_sizes[:, 0]))
 
     def iter_pair_chunks(self, capacity: int = 1 << 20
                          ) -> Iterator[torch.Tensor]:
         """Stream the (i, x, y) pair table range shard by range shard, in
         chunks of at most ``capacity`` rows (clamped to each shard's
-        total): concatenated, the single index's pair table."""
-        for s, g in zip(self._range_partitioned(), self._rp_group_stats()):
-            cap = srt.clamp_chunk_capacity(capacity, g.n_pairs)
-            for start in range(0, g.n_pairs, cap):
-                yield _pair_chunk(s.s_pos, g.i_col, g.m, g.cum_m, s.n_valid,
-                                  start, min(cap, g.n_pairs - start))
+        total): concatenated, the single index's pair table. Each chunk
+        comes from the rank that owns its shard."""
+        stats = self._rp_group_stats()
+        rp, mine = self._range_partitioned(), self.mesh.local_shards
+        none = torch.zeros((0, 3), dtype=torch.int32, device=self.device)
+        for d, n_pairs in enumerate(self._rp_sizes[:, 2].tolist()):
+            cap = srt.clamp_chunk_capacity(capacity, n_pairs)
+            for start in range(0, n_pairs, cap):
+                rows = np.zeros(self.n_shards, np.int64)
+                rows[d] = n = min(cap, n_pairs - start)
+                yield self._gather([
+                    _pair_chunk(s.s_pos, g.i_col, g.m, g.cum_m, s.n_valid,
+                                start, n) if e == d else none
+                    for e, s, g in zip(mine, rp, stats)], rows)[d]
 
     def tables(self, opt_flag: int, max_pairs: Optional[int] = None
                ) -> Dict:
@@ -591,37 +656,50 @@ class ShardedKmerIndex:
         return enc.sortable_key(q.reshape(-1))
 
     def _bounds(self, q: torch.Tensor):
-        """Each shard's (lb, ub) rows of sortable queries."""
+        """This rank's shards' (lb, ub) rows of sortable queries."""
         return [srt.lookup_bounds(s.s_key, s.n_valid, q)
                 for s in self.shards]
 
     def lookup_counts(self, q_raw) -> torch.Tensor:
         """int32 occurrence count of each queried k-mer: the shards' counts
-        summed (a key lives in one shard). Queries are raw int64 patterns,
-        as the port's ``CountStore.lookup`` takes them (the JAX package
-        takes their (hi, lo) uint32 halves)."""
+        summed (a key lives in one shard), then over the ranks. Queries are
+        raw int64 patterns, as the port's ``CountStore.lookup`` takes them
+        (the JAX package takes their (hi, lo) uint32 halves)."""
         q = self._queries(q_raw)
         out = torch.zeros(q.shape, dtype=torch.int64, device=self.device)
         for lb, ub in self._bounds(q):
             out += ub - lb
+        if self.mesh.distributed:
+            out = torch.from_numpy(self.mesh.all_sum(out.cpu().numpy())).to(
+                self.device)
         return out.to(torch.int32)
 
-    @staticmethod
-    def _hit_totals(ranges) -> np.ndarray:
-        """Each shard's hit total, int64 [D], from its (lb, c, cum_c)."""
-        return np.array([_total(r[2]) for r in ranges], np.int64)
+    def _hit_totals(self, ranges) -> np.ndarray:
+        """Every shard's hit total, int64 [D], from this rank's shards'
+        (lb, c, cum_c)."""
+        return self.mesh.allgather([_total(r[2]) for r in ranges]
+                                   ).reshape(-1)
 
-    @staticmethod
-    def _drain_chunks(call, C: int, totals: np.ndarray
-                      ) -> List[torch.Tensor]:
-        """Run a per-shard chunk emitter ``call(d, start, n)`` until every
-        shard's true total is drained, C rows a shard a round (no
-        truncation)."""
+    def _round(self, call, starts: np.ndarray, counts: np.ndarray,
+               none: torch.Tensor) -> List[torch.Tensor]:
+        """One round of the per-shard chunk streams: shard d's ``counts[d]``
+        rows from ``starts[d]`` (``call(i, start, n)`` for this rank's i-th
+        shard; ``none`` where a shard has no rows this round), gathered in
+        shard order on every rank."""
+        return self._gather([
+            call(i, int(starts[d]), int(counts[d])) if counts[d] else none
+            for i, d in enumerate(self.mesh.local_shards)], counts)
+
+    def _drain_chunks(self, call, C: int, totals: np.ndarray,
+                      none: torch.Tensor) -> List[torch.Tensor]:
+        """Run a per-shard chunk emitter until every shard's true total is
+        drained, C rows a shard a round (no truncation), in the order
+        round by round, shard by shard."""
         chunks = []
         for start in range(0, int(totals.max(initial=0)), C):
-            for d, total in enumerate(totals.tolist()):
-                if start < total:
-                    chunks.append(call(d, start, min(C, total - start)))
+            counts = np.clip(totals - start, 0, C)
+            got = self._round(call, np.full_like(totals, start), counts, none)
+            chunks.extend(c for c, n in zip(got, counts) if n)
         return chunks
 
     def positions_of(self, q_raw, max_hits_per_shard: int = 1 << 16
@@ -637,11 +715,12 @@ class ShardedKmerIndex:
         totals = self._hit_totals(ranges)
         C = srt.clamp_chunk_capacity(max_hits_per_shard,
                                      int(totals.max(initial=0)))
-        chunks = self._drain_chunks(lambda d, start, n: _hit_chunk(
-            self.shards[d].s_pos, *ranges[d], self.k, start, n)[:, 1],
-            C, totals)
+        none = torch.zeros(0, dtype=torch.int32, device=self.device)
+        chunks = self._drain_chunks(lambda i, start, n: _hit_chunk(
+            self.shards[i].s_pos, *ranges[i], self.k, start, n)[:, 1],
+            C, totals, none)
         if not chunks:
-            return torch.zeros(0, dtype=torch.int32, device=self.device)
+            return none
         return torch.sort(torch.cat(chunks)).values
 
     def seq_kmer_pos(self, query, k: int,
@@ -682,15 +761,17 @@ class ShardedKmerIndex:
         C = srt.clamp_chunk_capacity(max_hits_per_shard,
                                      int(totals.max(initial=0)))
         yield from self._merge_sorted_streams(
-            lambda d, start, n: _hit_chunk(self.shards[d].s_pos, *ranges[d],
+            lambda i, start, n: _hit_chunk(self.shards[i].s_pos, *ranges[i],
                                            k, start, n), C, totals)
 
     def _merge_sorted_streams(self, call, C: int, totals: np.ndarray
                               ) -> Iterator[torch.Tensor]:
-        """Drain per-shard chunk streams (``call(d, start, n)``: each
-        stream (i, j)-sorted, the streams disjoint in i) and yield globally
-        sorted blocks as soon as they are safe: a buffered row goes out
-        once every shard still drawing has drained past it.
+        """Drain per-shard chunk streams (``call(i, start, n)`` for this
+        rank's i-th shard: each stream (i, j)-sorted, the streams disjoint
+        in i) and yield globally sorted blocks as soon as they are safe: a
+        buffered row goes out once every shard still drawing has drained
+        past it. Every rank buffers every shard's rows (each round's chunks
+        gathered to all), so every rank decides alike.
 
         Buffers stay bounded under skew: a shard stops drawing while it
         buffers 2*C rows, so the peak (``_merge_peak_rows``) is at most
@@ -705,11 +786,12 @@ class ShardedKmerIndex:
         while True:
             willing = (cursors < totals) & np.array(
                 [b.shape[0] < 2 * C for b in bufs])
-            for d in np.flatnonzero(willing).tolist():
-                chunk = call(d, int(cursors[d]),
-                             int(min(C, totals[d] - cursors[d])))
-                bufs[d] = torch.cat([bufs[d], chunk])
-                last_key[d] = int(_row_keys(chunk[-1:])[0])
+            if willing.any():
+                counts = np.where(willing, np.minimum(C, totals - cursors), 0)
+                got = self._round(call, cursors, counts, _empty_rows(dev))
+                for d in np.flatnonzero(willing).tolist():
+                    bufs[d] = torch.cat([bufs[d], got[d]])
+                    last_key[d] = int(_row_keys(got[d][-1:])[0])
             cursors = np.where(willing, cursors + C, cursors)
             unfinished = cursors < totals
             self._merge_peak_rows = max(
@@ -751,7 +833,9 @@ def iter_kmer_pairs_sharded_chunks(a: ShardedKmerIndex, b: ShardedKmerIndex,
     rows, and emitting shard by shard is the single index's order, with no
     sort. A shard ahead of the one being emitted stops drawing once it
     buffers 2 chunks, so at most about 3*D*capacity rows are held. With no
-    rows at all, one empty (0, 2) block."""
+    rows at all, one empty (0, 2) block. Over processes the shard totals
+    are allgathered and each round's chunks gathered to every rank, so
+    every rank yields the same blocks."""
     if not _same_group(a.mesh, b.mesh):
         raise ValueError("both indexes must live on the same mesh")
     if a.k != b.k:
@@ -760,7 +844,7 @@ def iter_kmer_pairs_sharded_chunks(a: ShardedKmerIndex, b: ShardedKmerIndex,
     ra = a._range_partitioned()
     rb = b._range_partitioned(splitters=a._rp_spl)
     ranges = [_pair_ranges(x, y) for x, y in zip(ra, rb)]
-    totals = np.array([_total(r[2]) for r in ranges], np.int64)
+    totals = a._hit_totals(ranges)
     C = srt.clamp_chunk_capacity(capacity, int(totals.max(initial=0)))
     bufs: List[List[torch.Tensor]] = [[] for _ in range(D)]
     buffered = np.zeros(D, np.int64)
@@ -774,11 +858,14 @@ def iter_kmer_pairs_sharded_chunks(a: ShardedKmerIndex, b: ShardedKmerIndex,
         # the shard being emitted always draws (its buffer empties below);
         # shards ahead stall at 2 chunks
         willing = (cursors < totals) & (buffered < 2 * C)
-        for d in np.flatnonzero(willing).tolist():
-            n = int(min(C, totals[d] - cursors[d]))
-            bufs[d].append(_pair_hit_chunk(ra[d].s_pos, rb[d].s_pos,
-                                           *ranges[d], int(cursors[d]), n))
-            buffered[d] += n
+        if willing.any():
+            counts = np.where(willing, np.minimum(C, totals - cursors), 0)
+            got = a._round(lambda i, start, n: _pair_hit_chunk(
+                ra[i].s_pos, rb[i].s_pos, *ranges[i], start, n), cursors,
+                counts, _empty_rows(a.device))
+            for d in np.flatnonzero(willing).tolist():
+                bufs[d].append(got[d])
+                buffered[d] += counts[d]
         cursors = np.where(willing, cursors + C, cursors)
         _PAIRS_STREAM_STATS["peak_rows"] = max(
             _PAIRS_STREAM_STATS["peak_rows"], int(buffered.sum()))
@@ -797,7 +884,8 @@ def kmer_pairs_sharded(a: ShardedKmerIndex, b: ShardedKmerIndex,
                        max_pairs: Optional[int] = None) -> torch.Tensor:
     """Eager ``kmer.pairs`` across two sharded indexes, collected from
     :func:`iter_kmer_pairs_sharded_chunks`. Past ``max_pairs`` rows it
-    raises MemoryError (stream past the blow-up with the iterator)."""
+    raises MemoryError (stream past the blow-up with the iterator); over
+    processes every rank raises at the same block."""
     blocks, total = [], 0
     for blk in iter_kmer_pairs_sharded_chunks(a, b, capacity):
         total += blk.shape[0]

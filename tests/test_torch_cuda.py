@@ -1196,3 +1196,77 @@ def test_two_ranks_on_the_card_match_one_process(cuda, tmp_path):
                                       one.shards[d].keys.cpu().numpy())
                 assert np.array_equal(z[f"c{d}"],
                                       one.shards[d].cnt.cpu().numpy())
+
+
+INDEX_RANK_WORKER = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from kmer_hasher_tpu_torch import api
+from kmer_hasher_tpu_torch.parallel import ShardedKmerIndex, make_mesh
+rdzv, rank, seq_path, out = sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5]
+api.init_distributed(rdzv, world_size=2, rank=rank)
+seq = np.load(seq_path)
+ix = ShardedKmerIndex(seq, 21, make_mesh(8, distributed=True))
+tabs = ix.tables(15)
+rows = ix.seq_kmer_pos(seq[40_000:70_000], 21, 1 << 12)
+rec = {"device": str(ix.device), "kmer": tabs["kmer"],
+       "n_valid": ix.n_valid.tolist()}
+np.savez(out + f".r{rank}.npz", rows=rows.cpu().numpy(), **{
+    f: tabs[f].cpu().numpy() for f in ("pos", "pair.pos", "count")}, **{
+    f"{c}{d}": t.cpu().numpy() for d, s in zip(ix.mesh.local_shards, ix.shards)
+    for c, t in (("k", s.s_key), ("p", s.s_pos))})
+print(json.dumps(rec))
+"""
+
+
+def test_two_ranks_build_the_sharded_index_on_the_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card build the sharded index of 70,000
+    bases on 8 shards (chunks of 2^14: rank 1's first chunk ends the
+    sequence, its other three lie past the end): every rank's hash shards
+    equal the one-process index's on the card, and every rank reads its
+    tables(15) and a query's rows."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    from kmer_hasher_tpu_torch.parallel import ShardedKmerIndex, make_mesh
+
+    seq = random_seq(np.random.default_rng(912), 70_000, 2)
+    np.save(tmp_path / "seq.npy", seq)
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    (tmp_path / "w.py").write_text(INDEX_RANK_WORKER)
+    procs = [subprocess.Popen(
+        [sys.executable, str(tmp_path / "w.py"), str(repo),
+         f"file://{tmp_path / 'rdzv'}", str(r), str(tmp_path / "seq.npy"),
+         str(tmp_path / "out")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=dict(os.environ))
+        for r in range(2)]
+    try:
+        res = [p.communicate(timeout=300) for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        pytest.fail("the ranks did not finish in 300 s")
+    for p, (o, e) in zip(procs, res):
+        assert p.returncode == 0, e[-3000:]
+    one = ShardedKmerIndex(seq, 21, make_mesh(8))
+    want = one.tables(15)
+    rows = one.seq_kmer_pos(seq[40_000:70_000], 21, 1 << 12).cpu().numpy()
+    recs = [json.loads(o.strip().splitlines()[-1]) for o, _e in res]
+    for rank, r in enumerate(recs):
+        assert r["device"].startswith("cuda")
+        assert r["kmer"] == want["kmer"]
+        assert r["n_valid"] == one.n_valid.tolist()
+        with np.load(tmp_path / f"out.r{rank}.npz") as z:
+            assert np.array_equal(z["rows"], rows)
+            for f in ("pos", "pair.pos", "count"):
+                assert np.array_equal(z[f], want[f].cpu().numpy()), f
+            for d in range(4 * rank, 4 * rank + 4):
+                assert np.array_equal(z[f"k{d}"],
+                                      one.shards[d].s_key.cpu().numpy())
+                assert np.array_equal(z[f"p{d}"],
+                                      one.shards[d].s_pos.cpu().numpy())

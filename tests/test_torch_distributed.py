@@ -257,14 +257,17 @@ print("WORKER_OK", rank, json.dumps(info))
 '''
 
 
-def spawn(tmp: Path, P: int, spec: dict) -> list:
-    """P gloo ranks running WORKER over ``spec``'s cases; every rank must
-    exit 0 within SPAWN_TIMEOUT seconds, or every rank is killed and the
-    test fails. Returns each rank's stdout."""
-    (tmp / "worker.py").write_text(WORKER)
+def spawn(tmp: Path, P: int, spec: dict, worker: str = WORKER,
+          env: dict = None) -> list:
+    """P gloo ranks running ``worker`` over ``spec``'s cases, in ``env``
+    (by default this process's, one OpenMP thread and the native reader);
+    every rank must exit 0 within SPAWN_TIMEOUT seconds, or every rank is
+    killed and the test fails. Returns each rank's stdout."""
+    (tmp / "worker.py").write_text(worker)
     (tmp / "spec.json").write_text(json.dumps(spec))
     rdzv = f"file://{tmp / 'rendezvous'}"
-    env = dict(os.environ, OMP_NUM_THREADS="1", KMH_NATIVE_IO="1")
+    if env is None:
+        env = dict(os.environ, OMP_NUM_THREADS="1", KMH_NATIVE_IO="1")
     procs = [subprocess.Popen(
         [sys.executable, str(tmp / "worker.py"), str(REPO), rdzv, str(P),
          str(r), str(tmp / "spec.json")],

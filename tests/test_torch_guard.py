@@ -157,6 +157,14 @@ for name in ("probes.dma_probes_r3", "probes.cuda_probes_dma",
 assert api.init_distributed()["process_count"] == 1
 assert api.host_read_slice(10) == slice(0, 10)
 assert "kmer_hasher_tpu_torch.parallel.distributed" in sys.modules
+# the index's gathers are identities in one process; its routes: the build,
+# the range partition, the pairs' partition with its own splitters
+from kmer_hasher_tpu_torch.parallel import distributed, make_hierarchical_mesh
+hm = make_hierarchical_mesh(2, 2, device="cpu")
+parts = [torch.arange(n) for n in (3, 0, 2, 1)]
+assert hm.gather_shards(parts, [3, 0, 2, 1]) == parts
+assert distributed.all_gather_rows(parts[0], [3])[0] is parts[0]
+assert six.timings["routes"] == 3 and six.timings["gathers"] == 0
 import chip_smoke  # the smoke script's own imports (it runs only as main)
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))

@@ -450,3 +450,27 @@ def test_build_rows_past_the_end_are_all_invalid(k):
     starts = (torch.nonzero(valid[:, :16]) * torch.tensor([16, 1])).sum(1)
     want = enc.window_valid(torch.from_numpy(seq), k, 40)
     assert torch.equal(starts, torch.nonzero(want).squeeze(1))
+
+
+@pytest.mark.parametrize("n_shards", (1, 2, 3, 5, 7, 16))
+def test_other_shard_counts_equal_single(n_shards):
+    """Groups of other sizes than 8, odd ones too (chunks of 2^12 down to
+    2^8 bases, shards past the end at 16): tables(15), seq_kmer_pos in
+    blocks of 64 hits a shard and kmer_pairs_sharded equal the single
+    index's."""
+    mesh = make_mesh(n_shards, device=CPU)
+    seq, other = mixed_seq(), quirk_seq(21)
+    for k in (5, 21):
+        t, one = ShardedKmerIndex(seq, k, mesh), KmerIndex(seq, k, device=CPU)
+        assert t.n_valid.shape == (n_shards,)
+        got, want = t.tables(15), one.tables(15)
+        assert got["kmer"] == want["kmer"]
+        for f in ("pos", "pair.pos", "count"):
+            assert torch.equal(got[f], want[f]), f
+        query = np.concatenate([seq[100:700], np.frombuffer(b"N", np.uint8),
+                                seq[1450:1900]])
+        assert torch.equal(t.seq_kmer_pos(query, k, max_hits_per_shard=64),
+                           seq_kmer_pos(one, query, k))
+        b = ShardedKmerIndex(other, k, mesh)
+        assert torch.equal(kmer_pairs_sharded(t, b, capacity=64), kmer_pairs(
+            one, KmerIndex(other, k, device=CPU)))
