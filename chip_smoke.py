@@ -5,8 +5,9 @@ hash over 8 logical shards), the quality-filtered
 counting path (also into 8 key-hash shards, in one process and over gloo
 ranks that share the card), the per-base-threshold
 entries, the sort-design probes of both rounds and the DMA probes, the
-count store's spill regime with its ranged out-of-core fold, and the
-command line over the native reader, end to end.
+count store's spill regime with its ranged out-of-core fold, the
+command line over the native reader, and the user scripts and measurement
+entry points (bench, the counting probes, the examples), end to end.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -96,7 +97,8 @@ is nonzero:
              exact. Kernel launches are counted per path (index, merge-sort
              index, counting, file, threshold, probes, spill, probes_r3,
              cli, probes_dma, sharded, sharded_index, sharded_procs,
-             sharded_index_procs), set
+             sharded_index_procs, bench, e2e, hybrid_probe,
+             sharded_hybrid, large_pairs, counting_stress), set
              to 0 just before each (in the ranks: at their start) and read
              just after, and with them the rows B3 merged;
    main (sharded) — the counting cell's reads through
@@ -145,8 +147,9 @@ is nonzero:
              and (c)'s checkpoint reloaded onto 8 shards; a rank's nonzero
              exit or timeout fails the run; launches counted in the ranks
              (path sharded_procs);
-   main (spill) — the full-corpus regime of the JAX package's
-             tools/chip_probes/spill_regime.py: 244 batches x 29,696
+   main (spill) — the full-corpus regime through its entry point
+             probes.spill_regime.run (the twin of the JAX package's
+             tools/chip_probes/spill_regime.py): 244 batches x 29,696
              uniform-random 151-base reads, k=21, min_q=20, through
              _fused_rp_batch and add_run into CountStore(spill_bytes=1.5
              GiB); flush by the ranged fold (KMH_FOLD_BUDGET_BYTES = 3 GiB,
@@ -154,6 +157,21 @@ is nonzero:
              ranges and 5e8 distinct k-mers, and the sliced exact control
              (a second store fed only the keys whose top 10 of 42 bits are
              zero equals the big table's prefix bitwise);
+   main (tools) — the user scripts and measurement entry points of the
+             port at their sources' defaults, each a path of its own:
+             python -m kmer_hasher_tpu_torch.bench (2^25, k=32, chain 8;
+             B1 32 launches), probes.e2e_device_bench in 3 modes x 3
+             quality models (64 batches x 29,696 reads; hybrid == exact in
+             distinct and total), probes.hybrid_probe (16,384 reads, chain
+             8), probes.sharded_hybrid_bench (16 batches; hybrid == exact),
+             examples.large_pairs (40 Mbp at 300 copies, streamed to the
+             host and drained on the card with equal checksums; 1,000
+             copies drained on the card: more than 2^31 pairs, as many rows
+             as the counts' sum of c(c-1)/2, the chunk across pair 2^31
+             equal to the CPU's from the index's arrays) and
+             examples.counting_stress (200,000 reads through the file
+             entry). Before the main paths, B1-B3 are held against their
+             plain versions at these scripts' shapes;
 6. card vs CPU — index tables for k in {16, 21, 32}; the sharded index
              of the first 2^22 bases on 8 shards for the same k (shards,
              splitters, range shards, tables, pair drain); counting in all
@@ -2561,83 +2579,29 @@ def phase_card_vs_cpu_cli(fq50: Path, tmp: Path) -> None:
 
 # -- the spill regime ---------------------------------------------------------
 
-def draw_uniform_reads(gen, rows: int):
-    """One batch of uniform-random reads drawn on the card, with the spill
-    regime's qualities: phred 30-40, about 2% of the bases at phred 2-19."""
-    L = READ_LEN
-    seq = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device="cuda")[
-        torch.randint(0, 4, (rows, L), generator=gen, device="cuda")]
-    qual = torch.randint(63, 74, (rows, L), generator=gen, device="cuda",
-                         dtype=torch.uint8)
-    low = torch.rand((rows, L), generator=gen, device="cuda") < 0.02
-    lowq = torch.randint(35, 53, (rows, L), generator=gen, device="cuda",
-                         dtype=torch.uint8)
-    return seq, torch.where(low, lowq, qual)
-
-
-def phase_main_spill(gen, card: str):
-    """The full-corpus spill regime: see the module docstring."""
-    from kmer_hasher_tpu_torch import api, counting
-    from kmer_hasher_tpu_torch.qll import Q_TO_LL
+def phase_main_spill(card: str):
+    """The full-corpus spill regime through its entry point,
+    ``probes.spill_regime.run`` (see the module docstring), with its
+    checks held here as well."""
+    from kmer_hasher_tpu_torch import api
+    from kmer_hasher_tpu_torch.probes import spill_regime
 
     k = K_COUNT
     n_reads = SPILL_BATCHES * ROWS
-    n_win = counting.win_bucket(READ_LEN, k)
-    min_ll = float(Q_TO_LL[33 + MIN_Q])
-    lengths = torch.full((ROWS,), READ_LEN, dtype=torch.int32, device="cuda")
-    has_qual = torch.ones(ROWS, dtype=torch.bool, device="cuda")
-    slice_top = 1 << 32  # raw k-mers below it: top 10 of the 42 bits zero
-    before = os.environ.get("KMH_FOLD_BUDGET_BYTES")
-    os.environ["KMH_FOLD_BUDGET_BYTES"] = str(SPILL_FOLD_BUDGET)
-    try:
-        reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        store = api.CountStore(k, counts_n=1, mode="sh",
-                               spill_bytes=SPILL_BYTES)
-        control = api.CountStore(k, counts_n=1, mode="sh")
-        for i in range(SPILL_BATCHES):
-            seq, qual = draw_uniform_reads(gen, ROWS)
-            keys, cnt, n_obs = counting._fused_rp_batch(
-                seq, qual, lengths, has_qual, k, 1, 0, min_ll, "fast",
-                min_q_char=33 + MIN_Q, n_win=n_win)[:3]
-            sl = (keys ^ SIGN) < slice_top  # the run's sorted prefix
-            control.add_run(keys[sl], cnt[sl], int(cnt[sl].sum()))
-            spills = store.timings["spills"]
-            store.add_run(keys, cnt, n_obs)
-            if store.timings["spills"] > spills:
-                log(f"[main] spill: batch {i + 1}/{SPILL_BATCHES}: spill "
-                    f"#{store.timings['spills']}, "
-                    f"{store.timings['spilled_rows']:,} rows on the host so "
-                    f"far, {store._device_run_bytes() >> 20} MiB of runs "
-                    f"resident")
-        torch.cuda.synchronize()
-        t_loop = time.perf_counter() - t0
-        loop_tm = dict(store.timings)
-        t0 = time.perf_counter()
-        store.flush()
-        torch.cuda.synchronize()
-        t_fold = time.perf_counter() - t0
-    finally:
-        if before is None:
-            del os.environ["KMH_FOLD_BUDGET_BYTES"]
-        else:
-            os.environ["KMH_FOLD_BUDGET_BYTES"] = before
-    t0 = time.perf_counter()
-    spec = api.kmer_spectrum(store, 10)
-    t_spec = time.perf_counter() - t0
-    control.flush()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    r = spill_regime.run(SPILL_BATCHES, k, SPILL_BYTES, ROWS,
+                         SPILL_FOLD_BUDGET, MIN_Q)
     launches = read_launches("spill")
     peak = torch.cuda.max_memory_allocated()
+    store, control, loop_tm = r["store"], r["control"], r["loop_timings"]
+    t_loop, t_fold, t_spec, spec = (r["loop_s"], r["fold_s"],
+                                    r["spectrum_s"], r["spectrum"])
 
     tm = store.timings
     distinct, total = store.n_unique, int(store.total_added.sum())
-    n0 = int(((store.keys ^ SIGN) < slice_top).sum())
-    if not (n0 == control.n_unique > 0
-            and torch.equal(store.keys[:n0], control.keys)
-            and torch.equal(store.cnt[:n0], control.cnt)
-            and int(control.total_added.sum()) == int(control.cnt.sum())):
+    n0, same = spill_regime.control_prefix_equal(store, control)
+    if not same:
         raise AssertionError(
             f"sliced exact control: the big table's prefix ({n0:,} rows) "
             f"differs from the control store ({control.n_unique:,} rows)")
@@ -2650,7 +2614,8 @@ def phase_main_spill(gen, card: str):
                              f"{SPILL_MIN_DISTINCT:,}")
     if not (store.keys.is_cuda and int(store.cnt.sum()) == total
             and bool((store.keys[1:] > store.keys[:-1]).all())
-            and spec.shape == (11,) and int(spec.sum()) == distinct):
+            and spec.shape == (11,) and int(spec.sum()) == distinct
+            and (spec == api.kmer_spectrum(store, 10)).all()):
         raise AssertionError("the folded table is not a sorted unique table "
                              "on the card that sums to total_added")
     merges = two_run_merges(store) + two_run_merges(control)
@@ -3881,6 +3846,215 @@ def phase_times_sharded(batches, card: str, sharded_wall: float) -> None:
             + f"; under torch.profiler {dev} | {card}")
 
 
+# -- the user scripts and measurement entry points ---------------------------
+
+def phase_kernels_tools() -> dict:
+    """B1, B2 and B3 against their plain versions on the same CUDA tensors,
+    bitwise, at the shapes the user scripts give them, on inputs their own
+    generators draw: B1 on bench's 2^25 bases and large_pairs' 40 Mbp
+    chromosome padded as KmerIndex pads it (k=32); B2, all three
+    instantiations, on e2e_device_bench's [29,696, 152] batches of each
+    quality model, hybrid_probe's [16,384, 151] batches of each model and
+    counting_stress's [32,768, 152] file batch (k=21); B3 on the count
+    store's two-run merges of e2e runs (one run with one, four runs' union
+    with four). Returns the worst error by kernel."""
+    from kmer_hasher_tpu_torch import bench
+    from kmer_hasher_tpu_torch.examples import large_pairs
+    from kmer_hasher_tpu_torch.ops import cuda_encode as b1
+    from kmer_hasher_tpu_torch.ops import cuda_merge as b3
+    from kmer_hasher_tpu_torch.ops import cuda_scan as b2
+    from kmer_hasher_tpu_torch.probes import e2e_device_bench as e2e
+    from kmer_hasher_tpu_torch.probes import hybrid_probe as hp
+    from kmer_hasher_tpu_torch.qll import Q_TO_LL
+
+    dev = torch.device("cuda")
+    worst = {"B1": 0.0, "B2": 0.0, "B3": 0.0}
+    held = []
+
+    def hold(name, got, want, what):
+        torch.cuda.synchronize()
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        worst[name] = max(worst[name], err)
+        if err or len(got) != len(want):
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"{what}, max_abs_err={err}")
+        held.append(f"{name} {what}")
+
+    x = bench.make_sequence(1 << 25, dev)
+    hold("B1", b1.encode(x, 32, x.shape[0]), b1.plain(x, 32, x.shape[0]),
+         "bench [2^25], k=32")
+    seq = large_pairs.make_sequence(40.0, 1000)
+    x = torch.full((1 << (len(seq) - 1).bit_length(),), ord("N"),
+                   dtype=torch.uint8, device=dev)
+    x[: len(seq)] = torch.from_numpy(seq).to(dev)
+    hold("B1", b1.encode(x, 32, len(seq)), b1.plain(x, 32, len(seq)),
+         f"large_pairs [2^26] ({len(seq):,} bases), k=32")
+    del x
+    k, min_ll = K_COUNT, float(Q_TO_LL[33 + MIN_Q])
+    batches = [(f"e2e [{ROWS}, 152] {q}",
+                e2e.make_batches(1, ROWS, READ_LEN, quals=q)[0])
+               for q in e2e.QUALS]
+    rng = np.random.default_rng(0)
+    batches += [(f"hybrid_probe [16384, 151] {m}",
+                 hp.make_batch(rng, 16384, m)) for m in hp.MODELS]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    rows = 1 << 15
+    batches.append((f"counting_stress [{rows}, 152] stress",
+                    e2e.draw_batch(gen, rows, READ_LEN, "stress", dev)
+                    + (torch.full((rows,), READ_LEN, dtype=torch.int32,
+                                  device=dev),)))
+    for what, b in batches:
+        for name, kw in VARIANTS.items():
+            hold("B2", b2.scan(*b[:3], k, min_ll, **kw),
+                 b2.plain(*b[:3], k, min_ll, **kw), f"{what}, {name}")
+    staged = e2e.make_batches(8, ROWS, READ_LEN, quals="stress")
+    runs = [r[0] for r in e2e.build_runs(staged, k, "fast")]
+    for what, a, b in (("one e2e run with one", runs[0], runs[1]),
+                       ("four e2e runs' union with four",
+                        torch.unique(torch.cat(runs[:4])),
+                        torch.unique(torch.cat(runs[4:])))):
+        keys = torch.cat([a, b])
+        bounds = np.array([0, a.shape[0], keys.shape[0]])
+        hold("B3", b3.merge(keys, None, bounds), b3.plain(keys, None, bounds),
+             f"the store's two-run merge, {what} "
+             f"({a.shape[0]:,} + {b.shape[0]:,} rows)")
+    log(f"[kernels] at the user scripts' shapes, bitwise: "
+        + "; ".join(held) + f" (max_abs_err {worst})")
+    return worst
+
+
+def phase_main_tools(card: str):
+    """The user scripts and measurement entry points at their sources'
+    defaults, each a path of its own with its launches counted: bench
+    (2^25, k=32), e2e_device_bench (3 modes x 3 quality models, 64 batches
+    x 29,696 reads), hybrid_probe (B = 16,384, chain 8), sharded_hybrid_bench
+    (16 batches; hybrid == exact is its own check), large_pairs (40 Mbp,
+    300 copies streamed to the host and drained on the card, then 1,000
+    copies drained on the card: more than 2^31 pairs, the rows drained
+    against the counts, the chunk that crosses pair 2^31 against the same
+    chunk from the index's arrays on the CPU) and counting_stress (200,000
+    reads through the file entry). Returns (launches by path, the scripts'
+    records)."""
+    from kmer_hasher_tpu_torch import bench
+    from kmer_hasher_tpu_torch.examples import counting_stress, large_pairs
+    from kmer_hasher_tpu_torch.index.position_index import _pair_chunk
+    from kmer_hasher_tpu_torch.ops.sort import clamp_chunk_capacity
+    from kmer_hasher_tpu_torch.probes import e2e_device_bench as e2e
+    from kmer_hasher_tpu_torch.probes import hybrid_probe, sharded_hybrid_bench
+
+    launches, records = {}, {}
+
+    def path(name, fn):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = read_launches(name)
+        log(f"[main] tools: path {name} took {time.perf_counter() - t0:.1f} "
+            f"s, launches B1 {launches[name][0]}, B2 {launches[name][1]}, "
+            f"B3 {launches[name][2]}")
+        if not any(launches[name][:3]):
+            raise AssertionError(f"path {name} launched no kernel")
+        return out
+
+    rec = path("bench", lambda: bench.main([]))
+    records["bench"] = {key: rec[key] for key in
+                        ("metric", "value", "unit", "vs_baseline", "chain_s")}
+    if launches["bench"][:3] != (32, 0, 0):
+        raise AssertionError(f"bench launched {launches['bench'][:3]}, want "
+                             f"B1 32 (4 chains of 8 builds)")
+
+    def e2e_all():
+        return {f"{mode}/{quals}": e2e.run(mode=mode, quals=quals)
+                for quals in e2e.QUALS for mode in e2e.MODES}
+
+    records["e2e"] = path("e2e", e2e_all)
+    for quals in e2e.QUALS:
+        h, x = records["e2e"][f"hybrid/{quals}"], records["e2e"][
+            f"exact/{quals}"]
+        if (h["distinct"], h["total"]) != (x["distinct"], x["total"]):
+            raise AssertionError(f"e2e {quals}: hybrid differs from exact")
+    if not (launches["e2e"][1] and launches["e2e"][2]):
+        raise AssertionError("e2e launched no B2 or no B3")
+
+    records["hybrid_probe"] = rec = path("hybrid_probe",
+                                         lambda: hybrid_probe.main([]))
+    for model, m in rec["models"].items():
+        if m["flags"]["hybrid"] == 0 and m["acc"]["hybrid"] != m["acc"][
+                "fast"]:
+            raise AssertionError(f"hybrid_probe {model}: no read flagged, "
+                                 f"yet hybrid's runs differ from fast's")
+    if launches["hybrid_probe"][:3] != (0, 3 * 3 * 4 * 8, 0):
+        raise AssertionError(f"hybrid_probe launched "
+                             f"{launches['hybrid_probe'][:3]}")
+
+    records["sharded_hybrid"] = path(
+        "sharded_hybrid", lambda: sharded_hybrid_bench.main([]))
+    if not (launches["sharded_hybrid"][1] and launches["sharded_hybrid"][2]):
+        raise AssertionError("sharded_hybrid launched no B2 or no B3")
+
+    def pairs():
+        host = large_pairs.main([])
+        dev = large_pairs.main(["--drain-on-device"])
+        if (host["streamed"], host["checksum"]) != (dev["streamed"],
+                                                    dev["checksum"]):
+            raise AssertionError("large_pairs: the host and the device "
+                                 "drains disagree")
+        big = large_pairs.run(40.0, 1000, 1 << 62, True)
+        return host, dev, big
+
+    host, dev, big = path("large_pairs", pairs)
+    idx = big.pop("index")
+    counts = idx.counts().cpu().numpy().astype(np.int64)
+    want = int((counts * (counts - 1) // 2).sum())
+    total = big["total_pairs"]
+    if not (big["streamed"] == total == want and total > 2 ** 31):
+        raise AssertionError(
+            f"large_pairs, 1,000 copies: {big['streamed']:,} rows drained, "
+            f"total_pairs {total:,}, the counts give {want:,}")
+    cap = clamp_chunk_capacity(large_pairs.CHUNK, total)
+    start = (1 << 31) // cap * cap
+    n = min(cap, total - start)
+    on_card = _pair_chunk(idx.s_pos, idx.i_col, idx.m, idx.cum_m,
+                          idx.n_valid, start, n).cpu()
+    on_cpu = _pair_chunk(idx.s_pos.cpu(), idx.i_col.cpu(), idx.m.cpu(),
+                         idx.cum_m.cpu(), idx.n_valid, start, n)
+    if not (torch.equal(on_card, on_cpu) and start <= 2 ** 31 < start + n
+            and bool((on_cpu[:, 1] < on_cpu[:, 2]).all())):
+        raise AssertionError("large_pairs: the chunk across pair 2^31 "
+                             "differs between the card and the CPU")
+    del idx
+    log(f"[main] tools: large_pairs, 1,000 copies: {total:,} pairs "
+        f"(> 2^31) drained on the card = the counts' sum of c(c-1)/2; the "
+        f"chunk of rows [{start:,}, {start + n:,}) across pair 2^31 equals "
+        f"the CPU's from the index's arrays")
+    records["large_pairs"] = {"300 copies, host": host,
+                              "300 copies, device": dev,
+                              "1000 copies, device": big}
+    if launches["large_pairs"][:3] != (3, 0, 0):
+        raise AssertionError(f"large_pairs launched "
+                             f"{launches['large_pairs'][:3]}, want B1 3")
+
+    rec = path("counting_stress", lambda: counting_stress.main([]))
+    store = rec.pop("store")
+    merges = two_run_merges(store)
+    if not (store.keys.is_cuda and rec["distinct"] == store.n_unique > 0
+            and int(store.cnt.sum()) == rec["total"]
+            and bool((store.keys[1:] > store.keys[:-1]).all())):
+        raise AssertionError("counting_stress: the table is not a sorted "
+                             "unique table on the card")
+    if not (launches["counting_stress"][1] >= 7
+            and launches["counting_stress"][2] == merges >= 1):
+        raise AssertionError(
+            f"counting_stress launched B2 {launches['counting_stress'][1]} "
+            f"and B3 {launches['counting_stress'][2]} times; the store "
+            f"merged two runs {merges} times")
+    records["counting_stress"] = rec
+    return launches, records
+
+
 def merge_peak_factor(case) -> float:
     """Peak device bytes of one two-run ``merge_runs`` at the store shape
     over the bytes of its inputs (keys and one counter)."""
@@ -3910,7 +4084,9 @@ def bound(bytes_moved: float, ops: float):
 
 PATHS = ("index", "merge_sort_index", "counting", "file", "threshold",
          "probes", "spill", "probes_r3", "cli", "probes_dma", "sharded",
-         "sharded_index", "sharded_procs", "sharded_index_procs")
+         "sharded_index", "sharded_procs", "sharded_index_procs", "bench",
+         "e2e", "hybrid_probe", "sharded_hybrid", "large_pairs",
+         "counting_stress")
 # the paths whose B3 launches are rounds of a merge sort (32-bit payload),
 # not two-run merges of the count store (implicit payload)
 SORT_ROUND_PATHS = ("merge_sort_index", "probes_dma", "sharded_index",
@@ -3942,6 +4118,10 @@ def main() -> None:
     gen_dma.manual_seed(SEED + 6)
     dma_cases = probe_dma_cases(gen_dma)
     worst_p.update(phase_kernels_probes_dma(dma_cases))
+    worst_tools = phase_kernels_tools()
+    worst_b1 = max(worst_b1, worst_tools["B1"])
+    worst_b2 = max(worst_b2, worst_tools["B2"])
+    worst_b3 = max(worst_b3, worst_tools["B3"])
     seq = make_sequence(rng, SEQ_LEN)
     reset_launches()
     _, t_k32 = phase_main(seq)
@@ -3979,7 +4159,9 @@ def main() -> None:
     launches["probes"] = phase_main_probes()
     launches["probes_r3"] = phase_main_probes_r3()
     launches["probes_dma"] = phase_main_probes_dma()
-    launches["spill"] = phase_main_spill(gen_p, card)
+    launches["spill"] = phase_main_spill(card)
+    more, tools = phase_main_tools(card)
+    launches.update(more)
     by_path = [{p: launches[p][i] for p in PATHS}
                for i in range(len(counted_wrappers()))]
     b3_rows = {p: B3_ROWS[p] for p in PATHS}
@@ -4156,7 +4338,8 @@ def main() -> None:
             ("P10", "P10 probe_lane_gather", "probe_lane_gather.cu", 117,
              "full"),
         ), start=11)], "turns": turns, "file_entry": cli_stats,
-        "sharded_procs": procs_stats, "sharded_index_procs": ix_procs}))
+        "sharded_procs": procs_stats, "sharded_index_procs": ix_procs,
+        "tools": tools}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

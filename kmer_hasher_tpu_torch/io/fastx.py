@@ -12,7 +12,8 @@ bytes, sequences and qualities may span lines. Records come out two ways:
   qualities);
 * :func:`pad_records` — a dense batch: uint8 ASCII matrices ``seq`` and
   ``qual`` plus lengths. Padding is base 'N' / quality 0, so a padded tail
-  can form no valid window on any filtering path.
+  can form no valid window on any filtering path; :func:`read_fastx_padded`
+  is a whole file so.
 
 The byte-range forms (:func:`find_record_boundary`,
 :func:`iter_fastx_range`, gated by :func:`is_gzip` and
@@ -345,3 +346,10 @@ def pad_records(records: List[Record], pad_to_multiple: int = 8
             qual[i, :ln] = np.frombuffer(q, dtype=np.uint8)
             has_qual[i] = True
     return PaddedReads(seq=seq, qual=qual, lengths=lengths, has_qual=has_qual)
+
+
+def read_fastx_padded(path, max_records: Optional[int] = None
+                      ) -> PaddedReads:
+    """A whole file (at most ``max_records`` records) as one padded
+    batch: :func:`pad_records` of :func:`read_fastx`."""
+    return pad_records(read_fastx(path, max_records))

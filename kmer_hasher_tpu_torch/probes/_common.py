@@ -39,6 +39,32 @@ def card_line(dev: torch.device) -> str:
     return smi.stdout.strip().splitlines()[0].strip()
 
 
+def sync(dev: torch.device) -> None:
+    """Wait for the work queued on ``dev`` (a no-op on the CPU): what a
+    host clock around device work must end with."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def best_time(fn: Callable[[], object], dev: torch.device, iters: int = 3):
+    """(the best host seconds of ``iters`` calls of ``fn``, each ended by a
+    :func:`sync`, after one such call as a warm-up; the last call's
+    result): the user scripts' best-of timing, as their JAX sources take
+    it."""
+    def once():
+        out = fn()
+        sync(dev)
+        return out
+
+    once()
+    best, out = float("inf"), None
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = once()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
 WARMUP, REPEATS, ITERS = 2, 5, 10  # of a timing on a card
 PROFILE_WINDOWS = 3  # profiler windows of which device_ms takes the median
 

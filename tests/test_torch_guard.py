@@ -191,7 +191,9 @@ def test_sources_name_no_jax():
             "sort_probes.py", "cuda_probes_r3.py", "sort_probes_r3.py",
             "__main__.py", "params.py", "native.py", "dma_probes_r3.py",
             "cuda_probes_dma.py", "mesh.py", "sharded.py",
-            "distributed.py"} <= names
+            "distributed.py", "bench.py", "e2e_device_bench.py",
+            "hybrid_probe.py", "sharded_hybrid_bench.py", "spill_regime.py",
+            "large_pairs.py", "counting_stress.py"} <= names
     for path in sources + [REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             s = line.strip()
@@ -207,6 +209,13 @@ def no_card():
 
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device: the default device works")
+
+
+def entry(name: str):
+    """A module of the port by its name under the package."""
+    import importlib
+
+    return importlib.import_module("kmer_hasher_tpu_torch." + name)
 
 
 CALLS = {
@@ -263,6 +272,28 @@ CALLS = {
     "cli tables": lambda api, ck, p: __import__(
         "kmer_hasher_tpu_torch.__main__", fromlist=["main"]).main(
             ["tables", str(p["index"]), "-o", str(p["index"]) + ".t"]),
+    "bench.main": lambda api, ck, p: entry("bench").main([]),
+    "probes.e2e_device_bench.main": lambda api, ck, p: entry(
+        "probes.e2e_device_bench").main([]),
+    "probes.e2e_device_bench.run": lambda api, ck, p: entry(
+        "probes.e2e_device_bench").run(1, rows=8),
+    "probes.hybrid_probe.main": lambda api, ck, p: entry(
+        "probes.hybrid_probe").main(["8", "1"]),
+    "probes.hybrid_probe.run": lambda api, ck, p: entry(
+        "probes.hybrid_probe").run(8, 1),
+    "probes.sharded_hybrid_bench.main": lambda api, ck, p: entry(
+        "probes.sharded_hybrid_bench").main([]),
+    "probes.sharded_hybrid_bench.run": lambda api, ck, p: entry(
+        "probes.sharded_hybrid_bench").run(1, rows=8),
+    "probes.spill_regime.main": lambda api, ck, p: entry(
+        "probes.spill_regime").main([]),
+    "probes.spill_regime.run": lambda api, ck, p: entry(
+        "probes.spill_regime").run(2, rows=8),
+    "examples.large_pairs.main": lambda api, ck, p: entry(
+        "examples.large_pairs").main(["--mbp", "0.01", "--copies", "1"]),
+    "examples.counting_stress.main": lambda api, ck, p: entry(
+        "examples.counting_stress").main(["--reads", "4", "--keep",
+                                          p["fq"]]),
     "load_index": lambda api, ck, p: ck.load_index(p["index"]),
     "load_count_store": lambda api, ck, p: ck.load_count_store(p["store"]),
     "index_from_numpy": lambda api, ck, p: ck.index_from_numpy(
