@@ -98,7 +98,7 @@ is nonzero:
              index, counting, file, threshold, probes, spill, probes_r3,
              cli, probes_dma, sharded, sharded_index, sharded_procs,
              sharded_index_procs, bench, e2e, hybrid_probe,
-             sharded_hybrid, large_pairs, counting_stress), set
+             sharded_hybrid, large_pairs, counting_stress, multidevice), set
              to 0 just before each (in the ranks: at their start) and read
              just after, and with them the rows B3 merged;
    main (sharded) — the counting cell's reads through
@@ -108,6 +108,20 @@ is nonzero:
              owners' keys, spectra, total_added and depth are equal; later,
              count_kmers_fq_sh_rp(mesh=make_mesh(8)) of the command-line
              phase's FASTQ file gives the same shards;
+   main (multidevice) — the shard group over several devices of one
+             process: the counting cell's first 8 batches (hybrid) and the
+             index cell's first 2^22 bases (k=32 tables(2|4|8) with the
+             full pair drain, the k=21 query) through make_mesh(8,
+             devices=["cuda:0", "cpu"]), 4 shards on the card and 4 in
+             host memory, each output bitwise the logical 8-shard group's
+             on the card; launches counted (path multidevice) and per card
+             (B1, B2 and B3 on the card's half; the CPU half runs the
+             plain versions), the bytes that crossed devices, both groups'
+             walls; with two or more cards, the full counting cell and the
+             40,000,000-base index through every card in turns with the
+             logical group, with each card's peak memory (with one card, a
+             line that says it was not run); dryrun_multichip(8) on the
+             visible cards and on the mixed group;
    main (probes) — python -m kmer_hasher_tpu_torch.probes.sort_probes at
              log_n 26 through its entry point: E1 (P1), E2 at three granules
              (P2), E3 (P3), E3b (P4), E4 and E5 (plain sorts);
@@ -473,15 +487,16 @@ def phase_kernels(rng):
             cases.append((f"the sharded build's [{SHARDS}, {chunk} + halo] of "
                           f"{n:,} bases, lengths {lengths.tolist()}", rows,
                           lengths))
-        # the build over processes: each rank's own rows of the batch, a
-        # rank past the end with every length <= 0 (no window to find)
+        # the build over processes or over the devices of one process:
+        # each rank's or device's own rows of the batch, one past the end
+        # with every length <= 0 (no window to find)
         no_windows = set()
-        for P, n in IX_PROCS:
+        for P, n in sorted(set(IX_PROCS) | set(MD_SPREADS)):
             chunk = 1 << max(4, (-(-n // SHARDS) - 1).bit_length())
             for r in range(P):
                 mine = range(r * SHARDS // P, (r + 1) * SHARDS // P)
                 rows, lengths = chunk_rows(x[:n], SHARDS, chunk, k, dev, mine)
-                what = (f"rank {r} of {P}'s [{len(mine)}, {chunk} + halo] of "
+                what = (f"part {r} of {P}'s [{len(mine)}, {chunk} + halo] of "
                         f"{n:,} bases, lengths {lengths.tolist()}")
                 cases.append((what, rows, lengths))
                 if int(lengths.max()) < k:
@@ -508,7 +523,9 @@ def phase_kernels(rng):
         f"{SH_CHUNK:,} of {SEQ_LEN:,} bases and of 16 of 40 bases: lengths "
         f"<= 0, halos in the padding) and each rank's rows of them over "
         f"processes ({', '.join(f'{P} ranks on {n:,} bases' for P, n in IX_PROCS)}"
-        f"; a rank past the end) (max_abs_err {worst})")
+        f"; a rank past the end) and each device's over the devices of one "
+        f"process ({', '.join(map(str, MD_PARTS))} devices on {PREFIX:,} "
+        f"and {SEQ_LEN:,} bases) (max_abs_err {worst})")
     # inputs shorter than a chunk or than k: rows of 1-17 bytes (several in
     # one chunk, each thread's row found by division), per-row lengths and
     # one length for every row; 1-D inputs of 1-20 bytes from byte offsets
@@ -966,6 +983,33 @@ def phase_kernels_scan(rng) -> float:
                           f"{name}, k={K_COUNT}, {quals}, main shape")
             if not int(got[0].sum()):
                 raise AssertionError("B2 at the main shape emitted nothing")
+    # the rows a device takes of a counting batch over several devices of
+    # one process (ShardedCountStore.add_reads deals them in contiguous
+    # blocks): every block of 2, 4 and 8, views into the batch at their row
+    # offsets, from a generator of their own
+    from kmer_hasher_tpu_torch.counting import _row_blocks
+
+    seq, q, lengths = scan_batch(np.random.default_rng(SEED + 11), K_COUNT,
+                                 rows=ROWS, quals="binned")
+    lengths[4:] = READ_LEN
+    batch = (seq, q, lengths, torch.ones_like(lengths, dtype=torch.bool))
+    n_blocks = 0
+    for m in MD_PARTS:
+        for i, blk in enumerate(_row_blocks(batch, SHARDS, m)):
+            for name, kw in VARIANTS.items():
+                got = compare(blk[:3], K_COUNT, min_ll, kw,
+                              f"{name}, block {i} of {m}, "
+                              f"[{blk[0].shape[0]} x {READ_LEN}]")
+                if not int(got[0].sum()):
+                    raise AssertionError("B2 on a device's block emitted "
+                                         "nothing")
+            n_blocks += 1
+    log(f"[kernels] B2 == plain, bitwise, all three instantiations, on "
+        f"each device's block of a [{ROWS:,} x {READ_LEN}] counting batch "
+        f"dealt over {', '.join(map(str, MD_PARTS))} devices ({n_blocks} "
+        f"blocks of {', '.join(f'{ROWS // m:,}' for m in MD_PARTS)} rows), "
+        f"k={K_COUNT}, binned qualities")
+    del seq, q, lengths, batch
     # the edges of the warp tiling (32 reads a warp, chunks of 16 positions,
     # windows of 512): a generator of their own keeps the sequence and the
     # reads below what the seed has always made them
@@ -3162,6 +3206,215 @@ def phase_main_sharded_file(fq: Path, n_reads: int, staged, n_all: int,
     return st, wall
 
 
+# -- the shard group over several devices of one process ----------------------
+
+MD_BATCHES = 8  # the counting cell's first batches through the mixed group
+MD_MIXED = ("cuda:0", "cpu")  # crosses devices on a one-card machine
+# the index builds a device of the group's takes part in: the mixed group's
+# 2^22-base prefix, and the 40,000,000-base index over every card (2, 4 or
+# 8 of them, as many as divide 8)
+MD_PARTS = (2, 4, 8)
+MD_SPREADS = tuple((m, n) for n in (PREFIX, SEQ_LEN) for m in MD_PARTS)
+
+
+def spread_wrappers():
+    """B1, B2 and B3, the kernels of the spread group's path, whose wrappers
+    count their launches per card in ``by_device``."""
+    return counted_wrappers()[:3]
+
+
+def reset_by_device() -> None:
+    for w in spread_wrappers():
+        w.by_device = {}
+
+
+def read_by_device() -> list:
+    """[B1, B2, B3] launches per card index since the last reset."""
+    return [dict(w.by_device) for w in spread_wrappers()]
+
+
+def same_store_shards(a, b) -> bool:
+    a.flush()
+    b.flush()
+    return all(torch.equal(x.keys.cpu(), y.keys.cpu())
+               and torch.equal(x.cnt.cpu(), y.cnt.cpu())
+               for x, y in zip(a.shards, b.shards)) and bool(
+                   (a.total_added == b.total_added).all())
+
+
+def same_index_on(a, b) -> bool:
+    """Two sharded indexes' hash shards, bitwise, wherever they live."""
+    return all(torch.equal(x.s_key.cpu(), y.s_key.cpu())
+               and torch.equal(x.s_pos.cpu(), y.s_pos.cpu())
+               for x, y in zip(a.shards, b.shards))
+
+
+def spread_path(mesh, batches, seq, query):
+    """The path through one shard group: the batches counted by the file
+    entry's loop into ShardedCountStore(21, mesh), hybrid; the k=32 index
+    of ``seq`` with tables(2|4|8), the full pair drain among them; the k=21
+    index and
+    seq_kmer_pos of ``query``. Returns its outputs and its wall."""
+    from kmer_hasher_tpu_torch import counting
+    from kmer_hasher_tpu_torch.parallel import (ShardedCountStore,
+                                                ShardedKmerIndex)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = ShardedCountStore(K_COUNT, mesh)
+    counting.count_batches(st, batches, K_COUNT, min_q=MIN_Q,
+                           exact_ll="hybrid")
+    torch.cuda.synchronize()
+    t_count = time.perf_counter() - t0
+    ix = ShardedKmerIndex(seq, 32, mesh)
+    tabs = ix.tables(2 | 4 | 8)  # 4: the full pair drain
+    ix21 = ShardedKmerIndex(seq, 21, mesh)
+    rows = ix21.seq_kmer_pos(query, 21)
+    torch.cuda.synchronize()
+    return {"store": st, "index": ix, "tabs": tabs, "rows": rows, "count_s": t_count,
+            "wall": time.perf_counter() - t0,
+            "bytes": sum(x.timings.get(key, 0) for x in (st, ix, ix21)
+                         for key in ("exchange_bytes", "gather_bytes"))}
+
+
+def spread_equal(got: dict, want: dict) -> bool:
+    return (same_store_shards(got["store"], want["store"])
+            and same_index_on(got["index"], want["index"])
+            and all(torch.equal(got["tabs"][f].cpu(), want["tabs"][f].cpu())
+                    for f in ("pos", "pair.pos", "count"))
+            and torch.equal(got["rows"].cpu(), want["rows"].cpu()))
+
+
+def phase_main_multidevice(seq: np.ndarray, batches, card: str):
+    """The shard group over several devices of one process, through the
+    entries a user calls: the counting cell's first 8 batches and the index
+    cell's first 2^22 bases (k=32 tables(2|8) and full drain, the k=21
+    query) through make_mesh(8, devices=["cuda:0", "cpu"]), 4 shards on
+    the card and 4 in host memory, each output bitwise the logical 8-shard
+    group's on the card (run first, not counted). Launches counted (path
+    multidevice) and per card: B1 and B2 on the card's half, B3 as often
+    as the card's shards merged two runs. With two or more cards, the full
+    counting cell and the 40,000,000-base index through every card (as many
+    as divide 8), in turns with the logical group, with each card's peak
+    memory; with one, a line that says so. Then dryrun_multichip on the
+    visible cards and on the mixed group."""
+    from kmer_hasher_tpu_torch.multichip import dryrun_multichip
+    from kmer_hasher_tpu_torch.parallel import make_mesh
+
+    prefix = seq[:PREFIX]
+    query = seq[QUERY_AT: QUERY_AT + QUERY_LEN]
+    head = batches[:MD_BATCHES]
+    logical = spread_path(make_mesh(SHARDS), head, prefix, query)
+    reset_launches()
+    reset_by_device()
+    torch.cuda.reset_peak_memory_stats(0)
+    mixed = spread_path(make_mesh(SHARDS, devices=list(MD_MIXED)), head,
+                        prefix, query)
+    launches = read_launches("multidevice")
+    per_card = read_by_device()
+    peak = torch.cuda.max_memory_allocated(0)
+    st = mixed["store"]
+    kinds = [s.keys.device.type for s in st.shards]
+    if kinds != [torch.device(d).type for d in MD_MIXED
+                 for _ in range(SHARDS // len(MD_MIXED))]:
+        raise AssertionError(f"the mixed group's shards lie on {kinds}")
+    if not spread_equal(mixed, logical):
+        raise AssertionError("the group over cuda:0 and cpu differs from the "
+                             "logical 8-shard group")
+    merges = sum(s.timings["tier_merges"] + s.timings["fold_merges"]
+                 for s in st.shards[: SHARDS // 2])
+    b1, b2, b3 = (c.get(0, 0) for c in per_card)
+    if (b1 < 3 or b2 < MD_BATCHES or b3 != merges or merges < 1
+            or launches[:3] != (b1, b2, b3) or mixed["bytes"] <= 0):
+        raise AssertionError(
+            f"the mixed group launched B1 / B2 / B3 {launches[:3]} times, on "
+            f"card 0 {b1} / {b2} / {b3}; its card shards merged two runs "
+            f"{merges} times; {mixed['bytes']} bytes crossed devices")
+    log(f"[main] multidevice: make_mesh({SHARDS}, devices={list(MD_MIXED)}) "
+        f"(shards 0-3 on the card, 4-7 in host memory): {MD_BATCHES} "
+        f"batches x {ROWS:,} reads, hybrid, shards of "
+        f"{', '.join(f'{n:,}' for n in st.n_unique)} distinct; the k=32 "
+        f"index of {PREFIX:,} bases, tables(2|4|8) with its "
+        f"{mixed['tabs']['pair.pos'].shape[0]:,}-row pair drain; the k=21 query, {mixed['rows'].shape[0]:,} rows: all "
+        f"bitwise the logical 8-shard group's on the card; {mixed['wall']:.3f} "
+        f"s (counting {mixed['count_s']:.3f} s), logical "
+        f"{logical['wall']:.3f} s (counting {logical['count_s']:.3f} s); "
+        f"card 0 peak {peak / 2 ** 30:.2f} GiB | {card}")
+    log(f"[main] multidevice: launches per card (the CPU half runs the "
+        f"plain versions): B1 {per_card[0]}, B2 {per_card[1]}, B3 "
+        f"{per_card[2]} = the card shards' {merges} two-run merges; "
+        f"{mixed['bytes']:,} bytes crossed devices (exchanges and gathers)")
+    n = torch.cuda.device_count()
+    m = max(c for c in (1, 2, 4, 8) if c <= n)
+    out = {"mixed": {"devices": list(MD_MIXED), "batches": MD_BATCHES,
+                     "index_bases": PREFIX, "wall_s": mixed["wall"],
+                     "logical_wall_s": logical["wall"],
+                     "count_s": mixed["count_s"],
+                     "logical_count_s": logical["count_s"],
+                     "launches_by_card": per_card,
+                     "bytes_crossed": mixed["bytes"],
+                     "card0_peak_bytes": peak},
+           "visible_cards": n}
+    del mixed, logical
+    if m >= 2:
+        out["all_cards"] = phase_all_cards(seq, batches, query, m, card)
+    else:
+        log(f"[main] multidevice: the all-cards form (8 shards over every "
+            f"card) was not run: {n} card visible, and a spread over cards "
+            f"needs two or more; no copy from card to card ran")
+        out["all_cards"] = None
+    cards = [f"cuda:{i}" for i in range(m)]
+    out["dryrun"] = [dryrun_multichip(SHARDS, devices=d)
+                     for d in (cards, list(MD_MIXED))]
+    log(f"[main] multidevice: dryrun_multichip({SHARDS}) on {cards} and on "
+        f"{list(MD_MIXED)}: {out['dryrun'][0]['line']}")
+    return launches, out
+
+
+def phase_all_cards(seq: np.ndarray, batches, query, m: int, card: str):
+    """The full counting cell and the 40,000,000-base index through 8
+    shards over ``m`` cards, in turns with the logical group on card 0
+    (logical, spread, logical, spread), each card's peak memory per turn;
+    the spread outputs bitwise the logical's, B1 / B2 / B3 launched on
+    every card."""
+    from kmer_hasher_tpu_torch.parallel import make_mesh
+
+    cards = [f"cuda:{i}" for i in range(m)]
+    walls = {"logical": [], "spread": []}
+    peaks = {"logical": [], "spread": []}
+    for turn in range(2):
+        for name, mesh in (("logical", make_mesh(SHARDS)),
+                           ("spread", make_mesh(SHARDS, devices=cards))):
+            for i in range(m):
+                torch.cuda.reset_peak_memory_stats(i)
+            reset_by_device()
+            got = spread_path(mesh, batches, seq, query)
+            walls[name].append(got["wall"])
+            peaks[name].append([torch.cuda.max_memory_allocated(i)
+                                for i in range(m)])
+            if name == "logical":
+                want = got
+                continue
+            per_card = read_by_device()
+            if not spread_equal(got, want):
+                raise AssertionError(f"the group over {cards} differs from "
+                                     f"the logical group")
+            if not all(c.get(i, 0) >= 1 for c in per_card for i in range(m)):
+                raise AssertionError(f"a card launched no B1 / B2 / B3: "
+                                     f"{per_card}")
+            log(f"[main] multidevice: all cards, turn {turn}: "
+                f"{len(batches)} batches and {len(seq):,} bases through "
+                f"make_mesh({SHARDS}, devices={cards}) equal the logical "
+                f"group; wall {got['wall']:.3f} s (logical "
+                f"{want['wall']:.3f} s); peak GiB per card "
+                f"{[round(b / 2 ** 30, 2) for b in peaks['spread'][-1]]} "
+                f"(logical {[round(b / 2 ** 30, 2) for b in peaks['logical'][-1]]}); "
+                f"launches per card B1 {per_card[0]}, B2 {per_card[1]}, B3 "
+                f"{per_card[2]}; {got['bytes']:,} bytes crossed | {card}")
+            del got, want
+    return {"cards": cards, "walls_s": walls, "peak_bytes": peaks}
+
+
 # -- the sharded count store over several processes ----------------------------
 
 PROCS_TIMEOUT = 300  # seconds one spawn of ranks may take
@@ -4086,7 +4339,7 @@ PATHS = ("index", "merge_sort_index", "counting", "file", "threshold",
          "probes", "spill", "probes_r3", "cli", "probes_dma", "sharded",
          "sharded_index", "sharded_procs", "sharded_index_procs", "bench",
          "e2e", "hybrid_probe", "sharded_hybrid", "large_pairs",
-         "counting_stress")
+         "counting_stress", "multidevice")
 # the paths whose B3 launches are rounds of a merge sort (32-bit payload),
 # not two-run merges of the count store (implicit payload)
 SORT_ROUND_PATHS = ("merge_sort_index", "probes_dma", "sharded_index",
@@ -4140,6 +4393,8 @@ def main() -> None:
         more, fq, stats = phase_main_counting(genome, batches, Path(tmp))
         launches.update(more)
         launches["sharded"], sh_stats = phase_main_sharded(batches, stats)
+        launches["multidevice"], md_stats = phase_main_multidevice(
+            seq, batches, card)
         launches["threshold"] = phase_main_threshold(fq)
         phase_card_vs_cpu_spill(batches, fq, Path(tmp))
         launches["cli"], cli_stats = phase_main_cli(seq, batches, stats,
@@ -4339,7 +4594,7 @@ def main() -> None:
              "full"),
         ), start=11)], "turns": turns, "file_entry": cli_stats,
         "sharded_procs": procs_stats, "sharded_index_procs": ix_procs,
-        "tools": tools}))
+        "tools": tools, "multidevice": md_stats}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

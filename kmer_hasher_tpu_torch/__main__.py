@@ -14,10 +14,13 @@ Every verb that computes takes ``--device`` and runs on the card
 raises. Saved indexes and stores are the JAX package's files: either
 package's CLI loads the other's. ``count`` adds to its JSON line which
 reader parsed the files (``reader``: ``native`` or ``python``). ``count
---mesh N`` counts into N logical shards on the one device (``--mesh-slices
-S`` lays them out as S slices, which changes no result) and saves the
-sharded kind; ``--resume`` of such a file with ``--mesh N`` restores the
-shards, and ``spectrum`` / ``depth`` read it folded into one store.
+--mesh N`` counts into N key-hash shards and saves the sharded kind: on the
+one device, or with ``--mesh-devices M`` (M dividing N) over M devices, N/M
+shards on each (the first M cards for ``--device cuda``, else M copies of
+the device given; the JAX CLI's ``--mesh N`` is a mesh over N devices).
+``--mesh-slices S`` lays the shards out as S slices, which changes no
+result. ``--resume`` of such a file with ``--mesh N`` restores the shards,
+and ``spectrum`` / ``depth`` read it folded into one store.
 """
 from __future__ import annotations
 
@@ -107,19 +110,44 @@ def _count_info(store, out: str, mesh) -> dict:
     return info
 
 
+def _mesh_devices(a):
+    """The devices ``--mesh-devices M`` names: the first M cards for a
+    card named without its index, else M copies of ``--device``."""
+    if not a.mesh_devices:
+        return None
+    import torch
+
+    m = a.mesh_devices
+    if a.mesh % m:
+        raise SystemExit(f"--mesh {a.mesh} is not divisible by "
+                         f"--mesh-devices {m}")
+    dev = torch.device(a.device)
+    if dev.type == "cuda" and dev.index is None:
+        seen = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if seen < m:
+            raise SystemExit(f"--mesh-devices {m} asks for {m} cards; "
+                             f"{seen} are visible")
+        return [torch.device("cuda", i) for i in range(m)]
+    return [dev] * m
+
+
 def _mesh(a):
-    """The shard group ``--mesh`` / ``--mesh-slices`` ask for, or None."""
+    """The shard group ``--mesh`` / ``--mesh-slices`` / ``--mesh-devices``
+    ask for, or None."""
     if not a.mesh:
+        if a.mesh_devices:
+            raise SystemExit("--mesh-devices needs --mesh")
         return None
     from .parallel.mesh import make_hierarchical_mesh, make_mesh
 
+    devices = _mesh_devices(a)
     if a.mesh_slices:
         if a.mesh % a.mesh_slices:
             raise SystemExit(f"--mesh {a.mesh} is not divisible by "
                              f"--mesh-slices {a.mesh_slices}")
         return make_hierarchical_mesh(a.mesh_slices, a.mesh // a.mesh_slices,
-                                      device=a.device)
-    return make_mesh(a.mesh, device=a.device)
+                                      device=a.device, devices=devices)
+    return make_mesh(a.mesh, device=a.device, devices=devices)
 
 
 def cmd_count(a):
@@ -250,8 +278,13 @@ def main(argv=None):
                    help="likelihood filter: exact f64 (bit-parity), fast "
                         "f32, or hybrid (bitwise-exact at about fast speed)")
     s.add_argument("--mesh", type=int, default=None,
-                   help="count into N key-hash shards (logical shards on "
-                        "the one device) and save the sharded store")
+                   help="count into N key-hash shards (on the one device "
+                        "unless --mesh-devices spreads them) and save the "
+                        "sharded store")
+    s.add_argument("--mesh-devices", type=int, default=None,
+                   help="with --mesh: spread the N shards over M devices, "
+                        "N/M on each: the first M cards for --device cuda, "
+                        "else M copies of --device")
     s.add_argument("--mesh-slices", type=int, default=None,
                    help="with --mesh: lay the N shards out as this many "
                         "slices (routed flat: the same result)")

@@ -21,8 +21,10 @@ batch ahead in a producer thread; ``_device_batches`` stages the padded
 byte planes through pinned buffers. Which reader ran, and what the reading
 cost, is in ``store.timings`` (``reader``, ``parse_s``, ``wait_s``,
 ``copy_s``, ``h2d_bytes``, ``file_reads``). ``count_kmers_fq_sh_rp(mesh=)``
-counts into a ``parallel.ShardedCountStore`` on a shard group's logical
-shards (:func:`_count_rp_sharded`), through the same loop; over a group
+counts into a ``parallel.ShardedCountStore`` on a shard group's shards
+(:func:`_count_rp_sharded`), through the same loop; over a group spread
+over several devices of one process each batch's rows are dealt to the
+devices (``ShardedCountStore.add_reads``); over a group
 that spans processes, every rank parses its own part of the input (a share
 of a file list, a byte range of one plain FASTQ) or, where neither can be
 cut, its own rows of every batch, and the store's timings are the rank's
@@ -362,6 +364,20 @@ def _add_empty(store, source: int = 0) -> None:
                               device=store.device), 0, source=source)
 
 
+def _host_ints(scalars: List[torch.Tensor]) -> List[int]:
+    """Scalar tensors as host ints, one readback a device (the backlog of a
+    store over several devices holds each device's blocks)."""
+    out = [0] * len(scalars)
+    by_dev: dict = {}
+    for i, t in enumerate(scalars):
+        by_dev.setdefault(t.device, []).append(i)
+    for idx in by_dev.values():
+        for i, v in zip(idx, torch.stack([scalars[i] for i in idx])
+                        .cpu().tolist()):
+            out[i] = v
+    return out
+
+
 def _sweep_backlog(store: CountStore, backlog: list, k: int, source: int,
                    min_ll_f: float) -> int:
     """Re-count the borderline-flagged reads exactly (f64), emptying
@@ -374,12 +390,12 @@ def _sweep_backlog(store: CountStore, backlog: list, k: int, source: int,
     For a store over several processes, where ranks flag reads in
     different batches, every sweep is one add on every rank: the flagged
     reads of all batches, padded to the widest, in one exact scan (or an
-    empty add where the rank has none)."""
+    empty add where the rank has none). Over several devices each device's
+    blocks are re-counted on that device."""
     collective = _spans_processes(store)
     if not backlog and not collective:
         return 0
-    n_flags = (torch.stack([b[5] for b in backlog]).cpu().tolist()
-               if backlog else [])
+    n_flags = _host_ints([b[5] for b in backlog])
     picked = []
     for (seq_b, qual_b, len_b, f_b, n_win, _n), nf in zip(backlog, n_flags):
         if nf == 0:
@@ -470,7 +486,9 @@ def count_batches(store: CountStore, batches: Iterable, k: int,
     (seq, qual, lengths, has_qual) batch of ``batches`` — host numpy
     arrays, as the file reader gives them, or tensors already on the
     store's device — goes through :func:`_fused_rp_batch` into the store
-    (a ``CountStore``, or a ``ShardedCountStore`` that routes each run);
+    (a ``CountStore``; a ``ShardedCountStore`` takes the batch by
+    ``add_reads``, which deals its rows to its devices and routes the
+    runs);
     in hybrid mode flagged reads are re-counted exactly every
     ``_SWEEP_EVERY`` batches and at the end. Ends with a flush.
 
@@ -490,6 +508,7 @@ def count_batches(store: CountStore, batches: Iterable, k: int,
     min_q_char = 33 + int(min_q)
     backlog: list = []
     since_sweep = flagged = 0
+    sharded = getattr(store, "mesh", None) is not None
 
     def sweep():
         nonlocal since_sweep, flagged
@@ -502,12 +521,19 @@ def count_batches(store: CountStore, batches: Iterable, k: int,
         if len_h.shape[0]:
             with_noq = bool((~hq_h & (len_h > k)).any())
             n_win = win_bucket(len_h.max(initial=1), k)
-            run_keys, run_cnt, n_obs, flags, n_flag = _fused_rp_batch(
-                seq, qual, lengths, has_qual, k, store.counts_n, source,
-                min_ll_f, fsm, with_noq, min_q_char=min_q_char, n_win=n_win)
-            store.add_run(run_keys, run_cnt, n_obs, source=source)
-            if fsm == "hybrid":
-                backlog.append((seq, qual, lengths, flags, n_win, n_flag))
+            if sharded:  # the store deals the rows to its devices
+                store.add_reads(seq, qual, lengths, has_qual, min_ll_f, fsm,
+                                source, with_noq, min_q_char, n_win,
+                                backlog=backlog)
+            else:
+                run_keys, run_cnt, n_obs, flags, n_flag = _fused_rp_batch(
+                    seq, qual, lengths, has_qual, k, store.counts_n, source,
+                    min_ll_f, fsm, with_noq, min_q_char=min_q_char,
+                    n_win=n_win)
+                store.add_run(run_keys, run_cnt, n_obs, source=source)
+                if fsm == "hybrid":
+                    backlog.append((seq, qual, lengths, flags, n_win,
+                                    n_flag))
         else:
             _add_empty(store, source)
         since_sweep += 1
@@ -681,7 +707,7 @@ def count_kmers_fq_sh_rp(path, k: int, prefix_bits: int = 20,
     device batch (default: ``KMH_BATCH_ROWS``, else :data:`BATCH_ROWS`).
 
     ``mesh`` (a ``parallel.make_mesh`` shard group) counts into a
-    ``ShardedCountStore`` on the group's device instead: see
+    ``ShardedCountStore`` on the group's devices instead: see
     :func:`_count_rp_sharded`. A given ``store`` must then be one of its
     size.
     """
@@ -823,23 +849,36 @@ def _warn_gzip_lockstep(path) -> None:
         stacklevel=3)
 
 
+def _row_blocks(batch, n_shards: int, parts: int) -> List[tuple]:
+    """A (seq, qual, lengths, has_qual) batch — host numpy arrays or
+    tensors — padded with empty rows ('N', no length, no qualities) to a
+    multiple of ``n_shards`` rows and cut into ``parts`` contiguous blocks
+    of one size (``parts`` divides ``n_shards``): the JAX package's rows a
+    device, dealt to ranks (route (c)) or to the devices of one process.
+    One part is the batch as it is, unpadded."""
+    B = int(batch[2].shape[0])
+    pad = -B % n_shards if parts > 1 else 0
+    if pad:
+        batch = tuple(_pad_rows(a, pad, fill)
+                      for a, fill in zip(batch[:4], (ord("N"), 0, 0, False)))
+    per = (B + pad) // parts
+    return [tuple(a[i * per:(i + 1) * per] for a in batch[:4])
+            for i in range(parts)]
+
+
+def _pad_rows(a, pad: int, fill):
+    if isinstance(a, torch.Tensor):
+        return torch.cat([a, a.new_full((pad, *a.shape[1:]), fill)])
+    return np.concatenate([a, np.full((pad, *a.shape[1:]), fill, a.dtype)])
+
+
 def _lockstep_rows(batches: Iterable, mesh) -> Iterator[tuple]:
-    """Route (c): each whole-file batch padded with empty rows ('N', no
-    length) to a multiple of D, then this rank's contiguous block of its
-    rows, with the batch's record count as the fifth item."""
+    """Route (c): each whole-file batch padded with empty rows to a
+    multiple of D, then this rank's contiguous block of its rows, with the
+    batch's record count as the fifth item."""
     P, p = mesh.process_count, mesh.process_index
-    D = mesh.size
-    for seq, qual, lengths, has_qual in batches:
-        B = int(lengths.shape[0])
-        pad = -B % D
-        if pad:
-            seq = np.pad(seq, ((0, pad), (0, 0)), constant_values=ord("N"))
-            qual = np.pad(qual, ((0, pad), (0, 0)))
-            lengths = np.pad(lengths, (0, pad))
-            has_qual = np.pad(has_qual, (0, pad))
-        rpp = (B + pad) // P
-        sl = slice(p * rpp, (p + 1) * rpp)
-        yield seq[sl], qual[sl], lengths[sl], has_qual[sl], B
+    for b in batches:
+        yield (*_row_blocks(b, mesh.size, P)[p], int(b[2].shape[0]))
 
 
 def _aligned_batches(batches: Iterable, mesh, mine: dict

@@ -108,8 +108,9 @@ class _Staging:
     in chunks through two pinned host buffers, allocated at first use and
     reused for every spill and rejoin: the copy of one chunk overlaps the
     host's move of the other, and the run itself lives in ordinary (pageable)
-    host memory of exactly its size. For a CPU store both directions are
-    the identity."""
+    host memory of exactly its size. The copies and their events go on the
+    store's device's current stream, whichever device is current. For a CPU
+    store both directions are the identity."""
 
     def __init__(self, dev: torch.device):
         self.dev = dev
@@ -141,7 +142,7 @@ class _Staging:
                 a, b = chunks[i]
                 events[i % 2].synchronize()  # an earlier upload has left it
                 bufs[i % 2][: b - a].copy_(src[a:b], non_blocking=True)
-                events[i % 2].record()
+                events[i % 2].record(torch.cuda.current_stream(self.dev))
             if i:  # meanwhile move chunk i - 1 out of the other buffer
                 a, b = chunks[i - 1]
                 events[(i - 1) % 2].synchronize()
@@ -159,7 +160,7 @@ class _Staging:
             events[i % 2].synchronize()  # the buffer's last copy has left it
             bufs[i % 2][: b - a].copy_(src[a:b])
             dst[a:b].copy_(bufs[i % 2][: b - a], non_blocking=True)
-            events[i % 2].record()
+            events[i % 2].record(torch.cuda.current_stream(self.dev))
         return out
 
 

@@ -120,9 +120,11 @@ def encode(ascii_u8: torch.Tensor, k: int, true_len
             err = fn(*args)
     _build.check(lib, err, "B1 encode launch")
     encode.launches += 1
+    encode.by_device[index] = encode.by_device.get(index, 0) + 1
     encode.positions += n
     return key, valid
 
 
 encode.launches = 0
+encode.by_device = {}  # card index -> launches there
 encode.positions = 0  # window starts encoded by launches, for accounting

@@ -151,9 +151,11 @@ def merge(keys: torch.Tensor, pay: Optional[torch.Tensor],
             err = fn(*args)
     _build.check(lib, err, "B3 merge_path launch")
     merge.launches += 1
+    merge.by_device[index] = merge.by_device.get(index, 0) + 1
     merge.rows += n
     return out_k, out_p
 
 
 merge.launches = 0
+merge.by_device = {}  # card index -> launches there
 merge.rows = 0

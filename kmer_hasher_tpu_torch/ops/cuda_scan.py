@@ -106,9 +106,11 @@ def scan(ascii_u8: torch.Tensor, qual_u8: torch.Tensor,
                      torch.cuda.current_device(), stream)
         _build.check(lib, err, "B2 ll_scan launch")
         scan.launches += 1
+        scan.by_device[dev.index] = scan.by_device.get(dev.index, 0) + 1
     if return_flags:
         return emit, fwd, rc, flag
     return emit, fwd, rc
 
 
 scan.launches = 0
+scan.by_device = {}  # card index -> launches there

@@ -14,13 +14,18 @@ What one batch does (:meth:`ShardedCountStore.add_reads`): the
 single-device ``_fused_rp_batch`` over the whole batch (B2, canonical,
 trim, no-quality rows through B1) gives one run; each key's owner is
 computed; each shard takes its exact-length bucket as a run of its own.
-Hybrid results equal exact results bitwise, so the flagged reads are
-re-counted exactly before routing. The shards' tiers merge one shard at a
-time (the JAX store's ``_vmerge_*`` ran them side by side in one program).
+Over a group spread over several devices the batch's rows are dealt to
+the devices in contiguous blocks first, as the JAX store deals them to
+chips, each device runs the pipeline on its own rows, and every bucket is
+copied to its owner's device. Hybrid results equal exact results bitwise,
+so the flagged reads are re-counted exactly before routing. The shards'
+tiers merge one shard at a time (the JAX store's ``_vmerge_*`` ran them
+side by side in one program), each on its own device.
 
 The position index (:class:`ShardedKmerIndex`): the sequence's D chunks,
-each with a (k-1)-base halo, encoded by kernel B1 in one launch, every
-window routed to its owner and each shard sorted by (k-mer, position);
+each with a (k-1)-base halo, encoded by kernel B1 in one launch a device,
+every window routed to its owner and each shard sorted by (k-mer,
+position) on its own device;
 the tables from a copy re-sharded by sampled key ranges; queries over
 every shard; :func:`iter_kmer_pairs_sharded_chunks` and
 :func:`kmer_pairs_sharded` across two indexes. Over the processes of a
@@ -65,7 +70,7 @@ from ..index.position_index import (MAX_K, _NUC, _decode_kmers, _group_stats,
 from ..index.query import _hit_chunk, _pair_hit_chunk, _pair_ranges, _total
 from ..ops import encode as enc
 from ..ops import sort as srt
-from .mesh import ShardGroup
+from .mesh import ShardGroup, device_blocks, to_device
 
 _M32 = 0xFFFFFFFF
 
@@ -101,9 +106,11 @@ def owner_of_keys(keys: torch.Tensor, n_shards: int) -> torch.Tensor:
 
 class ShardedCountStore:
     """Canonical k-mer counting sharded by key hash over the shard group
-    ``mesh`` (:func:`..parallel.mesh.make_mesh`): D count stores on
-    ``mesh.device``, shard d holding exactly the keys whose
-    :func:`owner_hash` is d.
+    ``mesh`` (:func:`..parallel.mesh.make_mesh`): D count stores, shard d
+    on ``mesh.device_of(d)`` and holding exactly the keys whose
+    :func:`owner_hash` is d. ``device`` is the group's home: reads come
+    back there (over several devices, each shard's part computed on its
+    own device first, the JAX store's ``psum``).
 
     Over a group that spans processes each rank holds only its own shards
     (``shards[i]`` is shard ``mesh.local_shards[i]``; ``n_shards`` stays D),
@@ -142,8 +149,8 @@ class ShardedCountStore:
         self.shards: List[CountStore] = [
             CountStore(self.k, counts_n=self.counts_n, mode="sh",
                        spill_bytes=per, spill_dir=spill_dir,
-                       device=self.device)
-            for _ in mesh.local_shards]
+                       device=mesh.device_of(d))
+            for d in mesh.local_shards]
         self._total_added = np.zeros(self.counts_n, np.int64)
         self.timings = {"routes": 0, "route_s": 0.0, "exchanges": 0,
                         "exchange_s": 0.0, "exchange_bytes": 0}
@@ -162,17 +169,26 @@ class ShardedCountStore:
         owner shards: each takes its bucket, from each rank, as a run of its
         own (still sorted and unique). ``n_obs`` observations of ``source``
         go into ``total_added``. Over processes an empty run is routed too:
-        every rank's add is one exchange."""
+        every rank's add is one exchange. Over several devices the run
+        stays where it is given and each bucket is copied to its owner's
+        device."""
         if not 0 <= source < self.counts_n:
             raise ValueError("source out of range")
         if cnt.shape != (keys.shape[0], self.counts_n):
             raise ValueError("count rows do not match the keys")
         t0 = time.perf_counter()
-        keys = keys.to(self.device)
-        cnt = cnt.to(self.device, torch.int64)
+        dev = keys.device if self.mesh.multi_device else self.device
         self._total_added[source] += int(n_obs)
-        if keys.shape[0] or self.mesh.distributed:
-            owner = owner_of_keys(keys, self.n_shards)
+        self._route([keys.to(dev)], [cnt.to(dev, torch.int64)], source, t0)
+        return self
+
+    def _route(self, keys: List[torch.Tensor], cnt: List[torch.Tensor],
+               source: int, t0: float) -> None:
+        """Runs, one a source (one a device over several devices), to the
+        owner shards through one exchange; each shard takes its pieces in
+        source order."""
+        if any(k.shape[0] for k in keys) or self.mesh.distributed:
+            owner = [owner_of_keys(k, self.n_shards) for k in keys]
             buckets = self.mesh.exchange(owner, keys, cnt, by_rank=True,
                                          stats=self.timings)
             self.timings["routes"] += 1
@@ -181,7 +197,6 @@ class ShardedCountStore:
                 for k_d, c_d in pieces:
                     if k_d.shape[0]:
                         shard.add_run(k_d, c_d, 0, source=source)
-        return self
 
     def add_batch(self, raw: torch.Tensor, valid: torch.Tensor,
                   source: int = 0) -> "ShardedCountStore":
@@ -200,26 +215,50 @@ class ShardedCountStore:
     def add_reads(self, seq, qual, lengths, has_qual, min_ll_f: float,
                   precision: str = "fast", source: int = 0,
                   with_noq: bool = False, min_q_char: Optional[int] = None,
-                  n_win: Optional[int] = None) -> "ShardedCountStore":
+                  n_win: Optional[int] = None,
+                  backlog: Optional[list] = None) -> "ShardedCountStore":
         """One read batch ([B, L] byte planes and [B] lengths / quality
         flags on the store's device): ``counting._fused_rp_batch`` over the
-        whole batch, routed to the owner shards. ``precision`` "exact"
+        batch's rows, routed to the owner shards. ``precision`` "exact"
         (f64), "fast" (f32) or "hybrid" (f32, the flagged reads re-counted
         in f64 before this returns: bitwise equal to "exact"). Rows without
         qualities go through the encoder when ``with_noq``. (The JAX
         store's ``with_q`` selected a traced branch; here rows without
-        qualities emit nothing from the filter, so there is none.)"""
+        qualities emit nothing from the filter, so there is none.)
+
+        The rows are dealt to the group's M devices in contiguous blocks
+        (over several devices, padded with empty rows to a multiple of D
+        first: the JAX store's rows a chip); each device runs
+        ``_fused_rp_batch`` on its own block, so B2 launches on every card,
+        and the M runs go to one exchange. Over several devices each shard
+        thus takes M runs a batch where a group on one device takes one. With ``backlog`` (a list) hybrid's flagged reads are
+        appended to it, one entry a block, for the caller's sweep
+        (``counting.count_batches``) instead of re-counted here."""
         from .. import counting
 
-        run_keys, run_cnt, n_obs, flags, n_flag = counting._fused_rp_batch(
-            seq, qual, lengths, has_qual, self.k, self.counts_n, source,
-            float(min_ll_f), precision, with_noq, min_q_char=min_q_char,
-            n_win=n_win)
-        self.add_run(run_keys, run_cnt, n_obs, source=source)
+        if not 0 <= source < self.counts_n:
+            raise ValueError("source out of range")
+        t0 = time.perf_counter()
+        devices = self.mesh.devices
+        runs, swept = [], []
+        for b, dev in zip(counting._row_blocks(
+                (seq, qual, lengths, has_qual), self.n_shards, len(devices)),
+                devices):
+            b = tuple(to_device(t, dev) for t in b)
+            run_keys, run_cnt, n_obs, flags, n_flag = \
+                counting._fused_rp_batch(
+                    *b, self.k, self.counts_n, source, float(min_ll_f),
+                    precision, with_noq, min_q_char=min_q_char, n_win=n_win)
+            runs.append((run_keys, run_cnt))
+            swept.append((*b[:3], flags, n_win, n_flag))
+            self._total_added[source] += int(n_obs)
+        self._route([r[0] for r in runs], [r[1] for r in runs], source, t0)
         if precision == "hybrid":
-            counting._sweep_backlog(
-                self, [(seq, qual, lengths, flags, n_win, n_flag)], self.k,
-                source, float(min_ll_f))
+            if backlog is not None:
+                backlog.extend(swept)
+            else:
+                counting._sweep_backlog(self, swept, self.k, source,
+                                        float(min_ll_f))
         return self
 
     def flush(self) -> "ShardedCountStore":
@@ -277,12 +316,17 @@ class ShardedCountStore:
     def lookup(self, q_raw: torch.Tensor) -> torch.Tensor:
         """Count rows for raw queries, int32 [n, counts_n] on the store's
         device, zeros for absent k-mers: the shards' lookups summed (a key
-        is found in its owner shard only), then over the ranks."""
+        is found in its owner shard only), on each device and then on the
+        home device, then over the ranks."""
         q = q_raw.to(self.device).reshape(-1)
         out = torch.zeros((q.shape[0], self.counts_n), dtype=torch.int32,
                           device=self.device)
-        for s in self.shards:
-            out += s.lookup(q)
+        for dev, mine in device_blocks(self.mesh):
+            q_d = to_device(q, dev)
+            part = self.shards[mine[0]].lookup(q_d)
+            for i in mine[1:]:
+                part += self.shards[i].lookup(q_d)
+            out += to_device(part, self.device)
         if self.mesh.distributed:
             summed = self.mesh.all_sum(out.cpu().numpy().reshape(-1))
             out = torch.from_numpy(summed.reshape(tuple(out.shape))).to(
@@ -293,15 +337,17 @@ class ShardedCountStore:
     def set_tables(self, tables: Sequence[Run]) -> "ShardedCountStore":
         """Install the base tables of all D shards (sortable keys [n_d],
         int64 count rows [n_d, counts_n], on any device), sorted and reduced
-        here; the checkpoint's restore. A rank installs its own shards'.
-        Raises if a key does not belong to its shard."""
+        here; the checkpoint's restore. A rank installs its own shards',
+        each on its own device. Raises if a key does not belong to its
+        shard."""
         if len(tables) != self.n_shards:
             raise ValueError(f"{len(tables)} tables for {self.n_shards} "
                              f"shards")
         for shard, d in zip(self.shards, self.mesh.local_shards):
             keys, cnt = tables[d]
-            keys = keys.to(self.device)
-            cnt = cnt.to(self.device, torch.int64).reshape(-1, self.counts_n)
+            dev = self.mesh.device_of(d)
+            keys = keys.to(dev)
+            cnt = cnt.to(dev, torch.int64).reshape(-1, self.counts_n)
             if keys.shape[0] != cnt.shape[0]:
                 raise ValueError("key lanes and count rows differ in length")
             if keys.shape[0]:
@@ -378,11 +424,12 @@ def _sort_shard(raw: torch.Tensor, pos: torch.Tensor, k: int) -> Shard:
 
 def _same_group(a: ShardGroup, b: ShardGroup) -> bool:
     """Two groups are the same where they lay out as many shards the same
-    way on one device and over the same processes, this rank owning the
-    same shards in both (the JAX package compares meshes by their
+    way on the same devices and over the same processes, this rank owning
+    the same shards in both (the JAX package compares meshes by their
     devices)."""
     def layout(g: ShardGroup):
-        return g.size, g.shape, g.device, g.process_count, g.process_index
+        return (g.size, g.shape, g.device, g.devices, g.process_count,
+                g.process_index)
     return a is b or layout(a) == layout(b)
 
 
@@ -410,15 +457,23 @@ class ShardedKmerIndex:
     :func:`owner_hash` of its raw key names
     (:meth:`~..parallel.mesh.ShardGroup.exchange`), where the rows are
     sorted by (k-mer, position). ``shards[i]`` is shard
-    ``mesh.local_shards[i]`` at its exact length on ``mesh.device``;
-    ``n_valid`` the lengths of all D shards (int64 [D]). Nothing is padded
-    to a capacity: ``capacity_factor`` is accepted and ignored.
+    ``mesh.local_shards[i]`` at its exact length on its device
+    (``mesh.device_of``); ``n_valid`` the lengths of all D shards (int64
+    [D]). Nothing is padded to a capacity: ``capacity_factor`` is accepted
+    and ignored.
 
     Tables (``kmer_strings``, ``counts``, ``pos_table``, the pair stream)
     come from a second copy re-sharded by key range
     (:meth:`_range_partitioned`), emitted shard by shard in key order:
     they equal the single index's. Queries search every hash shard.
-    Tensors come back on the group's device.
+    Tensors come back on the group's (home) device.
+
+    Over a group spread over several devices each device encodes its own
+    shards' rows of the batch in one B1 launch, the routed windows are
+    copied to their owners' devices and every shard is sorted there; each
+    range shard lives on the device of its hash shard's number. Queries
+    are copied to every device, and what the shards give back is summed or
+    merged on the home device.
 
     Over a group that spans processes every rank holds the whole host
     sequence, as in the JAX package, and encodes, routes and sorts only its
@@ -470,18 +525,25 @@ class ShardedKmerIndex:
         self.drop_range_partition()
 
     def _build(self, seq: np.ndarray) -> List[Shard]:
-        k, D, Lc, dev = self.k, self.n_shards, self.chunk, self.device
-        mine = self.mesh.local_shards
-        rows, lengths = chunk_rows(torch.from_numpy(seq), D, Lc, k, dev, mine)
-        raw, valid = enc.encode_stream(rows, k, lengths, canonical=False,
-                                       drop_trailing_exact_k=False)
-        pos = torch.arange(mine.start * Lc + 1, mine.stop * Lc + 1,
-                           dtype=torch.int32, device=dev).view(len(mine), Lc)
-        # windows that start in their own chunk, and not the quirk's
-        live = valid[:, :Lc] & (pos != self._quirk_pos)
-        raw, pos = raw[:, :Lc][live], pos[live]
-        owner = owner_hash(*enc.split_hi_lo(raw), D)
-        return [_sort_shard(r, p, k) for r, p in self._route(owner, raw, pos)]
+        k, D, Lc = self.k, self.n_shards, self.chunk
+        owner, raws, poss = [], [], []
+        for i, dev in enumerate(self.mesh.devices):  # one source a device
+            mine = self.mesh.shards_on(i)
+            rows, lengths = chunk_rows(torch.from_numpy(seq), D, Lc, k, dev,
+                                       mine)
+            raw, valid = enc.encode_stream(rows, k, lengths, canonical=False,
+                                           drop_trailing_exact_k=False)
+            pos = torch.arange(mine.start * Lc + 1, mine.stop * Lc + 1,
+                               dtype=torch.int32,
+                               device=dev).view(len(mine), Lc)
+            # windows that start in their own chunk, and not the quirk's
+            live = valid[:, :Lc] & (pos != self._quirk_pos)
+            raw, pos = raw[:, :Lc][live], pos[live]
+            owner.append(owner_hash(*enc.split_hi_lo(raw), D))
+            raws.append(raw)
+            poss.append(pos)
+        return [_sort_shard(r, p, k)
+                for r, p in self._route(owner, raws, poss)]
 
     def _route(self, owner: torch.Tensor, *cols: torch.Tensor) -> list:
         """The group's exchange, timed into ``timings``."""
@@ -493,8 +555,17 @@ class ShardedKmerIndex:
 
     def _gather(self, local: Sequence[torch.Tensor], rows) -> List[torch.Tensor]:
         """All D shards' tensors from this rank's (``rows`` their D
-        lengths, known to every rank), gathers timed into ``timings``."""
+        lengths, known to every rank) on the home device, gathers timed
+        into ``timings``."""
         return self.mesh.gather_shards(local, rows, stats=self.timings)
+
+    def _per_shard(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """``t`` on each of this rank's shards' devices (one copy a
+        device), in shard order."""
+        out = []
+        for dev, mine in device_blocks(self.mesh):
+            out.extend([to_device(t, dev)] * len(mine))
+        return out
 
     # -- the key-range copy ---------------------------------------------------
     def _splitters(self) -> torch.Tensor:
@@ -507,9 +578,10 @@ class ShardedKmerIndex:
         either way, as range shards are emitted in key order."""
         D, dev = self.n_shards, self.device
         idx = torch.arange(SAMPLES, dtype=torch.int64, device=dev)
-        samples = [s.s_key[idx * s.n_valid // SAMPLES] if s.n_valid
+        samples = [s.s_key[i * s.n_valid // SAMPLES] if s.n_valid
                    else torch.full((SAMPLES,), _LAST, dtype=torch.int64,
-                                   device=dev) for s in self.shards]
+                                   device=i.device)
+                   for s, i in zip(self.shards, self._per_shard(idx))]
         keys = torch.sort(torch.cat(self._gather(samples,
                                                  [SAMPLES] * D))).values
         n = keys.shape[0]
@@ -528,9 +600,12 @@ class ShardedKmerIndex:
         if splitters is None and self._rp is not None:
             return self._rp
         spl = self._splitters() if splitters is None else splitters
-        keys = torch.cat([s.s_key for s in self.shards])
-        pos = torch.cat([s.s_pos for s in self.shards])
-        owner = torch.searchsorted(spl, keys, right=True)
+        owner, keys, pos = [], [], []
+        for dev, mine in device_blocks(self.mesh):  # one source a device
+            keys.append(torch.cat([self.shards[i].s_key for i in mine]))
+            pos.append(torch.cat([self.shards[i].s_pos for i in mine]))
+            owner.append(torch.searchsorted(to_device(spl, dev), keys[-1],
+                                            right=True))
         rp = [_sort_shard(enc.sortable_key(r), p, self.k)
               for r, p in self._route(owner, keys, pos)]
         if splitters is None:
@@ -656,9 +731,10 @@ class ShardedKmerIndex:
         return enc.sortable_key(q.reshape(-1))
 
     def _bounds(self, q: torch.Tensor):
-        """This rank's shards' (lb, ub) rows of sortable queries."""
-        return [srt.lookup_bounds(s.s_key, s.n_valid, q)
-                for s in self.shards]
+        """This rank's shards' (lb, ub) rows of sortable queries, each on
+        its shard's device."""
+        return [srt.lookup_bounds(s.s_key, s.n_valid, q_d)
+                for s, q_d in zip(self.shards, self._per_shard(q))]
 
     def lookup_counts(self, q_raw) -> torch.Tensor:
         """int32 occurrence count of each queried k-mer: the shards' counts
@@ -668,7 +744,7 @@ class ShardedKmerIndex:
         q = self._queries(q_raw)
         out = torch.zeros(q.shape, dtype=torch.int64, device=self.device)
         for lb, ub in self._bounds(q):
-            out += ub - lb
+            out += to_device(ub - lb, self.device)
         if self.mesh.distributed:
             out = torch.from_numpy(self.mesh.all_sum(out.cpu().numpy())).to(
                 self.device)
@@ -754,8 +830,9 @@ class ShardedKmerIndex:
         x[:tl] = torch.from_numpy(query)
         key, valid = enc.encode_stream(x, k, tl, drop_trailing_exact_k=True)
         ranges = []
-        for lb, ub in self._bounds(enc.sortable_key(key)):
-            c = torch.where(valid, ub - lb, 0)
+        for (lb, ub), v in zip(self._bounds(enc.sortable_key(key)),
+                               self._per_shard(valid)):
+            c = torch.where(v, ub - lb, 0)
             ranges.append((lb, c, torch.cumsum(c, dim=0)))
         totals = self._hit_totals(ranges)
         C = srt.clamp_chunk_capacity(max_hits_per_shard,

@@ -19,9 +19,10 @@ A *sharded* store (``parallel.ShardedCountStore``) is saved as the JAX
 package saves its own: the shard tables one after the other in ``u_hi`` /
 ``u_lo`` / ``cnt``, with ``n_shards``, per-shard ``n_unique``, ``capacity``
 and ``total_added``. Such a file, from either package, loads onto a shard
-group of the same size (``load_count_store(path, mesh=)``), or folded into
-one store without ``mesh``. The restored shard tables are installed whole:
-no restored run is cut short.
+group of the same size (``load_count_store(path, mesh=)``), with or
+without ``devices`` (each shard restored onto its own device), or folded
+into one store without ``mesh``. The restored shard tables are installed
+whole: no restored run is cut short.
 
 Over a shard group that spans processes, as in the JAX package, saving is
 collective: every rank folds its own shards, rank 0 gathers the D tables
@@ -149,8 +150,9 @@ def _save_sharded_count_store(store, path, progress=None) -> None:
         "capacity": store.capacity, "n_unique": [int(v) for v in n],
         "progress": progress,
     }
-    keys = torch.cat([s.keys for s in store.shards]).cpu()
-    cnt = torch.cat([s.cnt for s in store.shards]).cpu()
+    # each shard to the host first: over several devices they lie apart
+    keys = torch.cat([s.keys.cpu() for s in store.shards])
+    cnt = torch.cat([s.cnt.cpu() for s in store.shards])
     mesh = store.mesh
     if mesh.distributed:
         per = mesh.size // mesh.process_count
@@ -244,8 +246,8 @@ def load_progress(path):
 
 def load_count_store(path, mesh=None, device="cuda"):
     """Load a saved store of either package onto ``device``. A sharded
-    store restores onto the shard group ``mesh`` (same shard count; the
-    store lives on ``mesh.device``) or, with ``mesh=None``, folds into one
+    store restores onto the shard group ``mesh`` (same shard count; shard d
+    on ``mesh.device_of(d)``) or, with ``mesh=None``, folds into one
     CountStore. A plain store ignores ``mesh``."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))

@@ -1270,3 +1270,105 @@ def test_two_ranks_build_the_sharded_index_on_the_card(cuda, tmp_path):
                                       one.shards[d].s_key.cpu().numpy())
                 assert np.array_equal(z[f"p{d}"],
                                       one.shards[d].s_pos.cpu().numpy())
+
+
+def _spread_case(devices, tmp_path):
+    """Counting batches and a sequence through 8 shards spread over
+    ``devices`` and through 8 shards on the card, with B1 / B2 / B3
+    launches counted per card over the spread group's build and count.
+    Returns (spread store, logical store, spread index, logical index, the
+    launches per card of each kernel)."""
+    from kmer_hasher_tpu_torch.parallel import (ShardedCountStore,
+                                                ShardedKmerIndex,
+                                                make_mesh)
+
+    rng = np.random.default_rng(1515)
+    batches = []
+    for _ in range(4):
+        rows, L = 2053, 151  # padded to a multiple of 8 before dealing
+        seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (rows, L))]
+        qual = rng.integers(66, 74, (rows, L)).astype(np.uint8)
+        low = rng.random((rows, L)) < 0.02  # borderline reads for hybrid
+        qual[low] = rng.integers(35, 45, int(low.sum())).astype(np.uint8)
+        batches.append((seq, qual, np.full(rows, L, np.int32),
+                        np.ones(rows, bool)))
+    seq = random_seq(rng, 300_000, 40)
+    seq[50_000:60_000] = seq[10_000:20_000]
+    wrappers = (cuda_encode.encode, cuda_scan.scan, cuda_merge.merge)
+    for w in wrappers:
+        w.by_device = {}
+    spread = make_mesh(8, devices=devices)
+    st = ShardedCountStore(21, spread)
+    counting.count_batches(st, batches, 21, min_q=20, exact_ll="hybrid")
+    st.flush()
+    ix = ShardedKmerIndex(seq, 32, spread)
+    per_card = [dict(w.by_device) for w in wrappers]
+    logical = make_mesh(8, device="cuda")
+    one = ShardedCountStore(21, logical)
+    counting.count_batches(one, batches, 21, min_q=20, exact_ll="hybrid")
+    return st, one, ix, ShardedKmerIndex(seq, 32, logical), per_card
+
+
+def _assert_spread_equals_logical(st, one, ix, ixl, tmp_path):
+    from kmer_hasher_tpu_torch.parallel import make_mesh
+    from kmer_hasher_tpu_torch.utils import checkpoint
+
+    st.flush()
+    one.flush()
+    for d, (a, b) in enumerate(zip(st.shards, one.shards)):
+        assert a.keys.device == st.mesh.device_of(d)
+        assert torch.equal(a.keys.cpu(), b.keys.cpu())
+        assert torch.equal(a.cnt.cpu(), b.cnt.cpu())
+    assert np.array_equal(st.spectrum(100), one.spectrum(100))
+    assert np.array_equal(st.total_added, one.total_added)
+    q = torch.cat([s.keys for s in one.shards])[::11] ^ torch.iinfo(
+        torch.int64).min
+    assert torch.equal(st.lookup(q).cpu(), one.lookup(q).cpu())
+    p = tmp_path / "spread.npz"
+    checkpoint.save_count_store(st, p)
+    back = checkpoint.load_count_store(p, mesh=make_mesh(8, device="cuda"))
+    assert all(torch.equal(a.keys, b.keys) for a, b in zip(back.shards,
+                                                           one.shards))
+    for d, (a, b) in enumerate(zip(ix.shards, ixl.shards)):
+        assert a.s_key.device == ix.mesh.device_of(d)
+        assert torch.equal(a.s_key.cpu(), b.s_key.cpu())
+        assert torch.equal(a.s_pos.cpu(), b.s_pos.cpu())
+    tg, tl = ix.tables(15), ixl.tables(15)
+    assert tg["kmer"] == tl["kmer"]
+    for f in ("pos", "pair.pos", "count"):
+        assert tg[f].device == ix.mesh.device
+        assert torch.equal(tg[f].cpu(), tl[f].cpu()), f
+    q = ixl.shards[5].s_key[::7] ^ torch.iinfo(torch.int64).min
+    assert torch.equal(ix.lookup_counts(q).cpu(), ixl.lookup_counts(q).cpu())
+    assert torch.equal(ix.positions_of(q, 256).cpu(),
+                       ixl.positions_of(q, 256).cpu())
+
+
+def test_card_and_cpu_group_equals_the_logical_group(cuda, tmp_path):
+    """8 shards over ["cuda:0", "cpu"] (4 on the card, 4 in host memory)
+    against 8 logical shards on the card: store tables shard by shard,
+    spectrum, lookups, the checkpoint, the index's shards, tables and
+    lookups, bitwise; the card's half launches B1, B2 and B3."""
+    st, one, ix, ixl, per_card = _spread_case(["cuda:0", "cpu"], tmp_path)
+    assert [s.keys.device.type for s in st.shards] == ["cuda"] * 4 + [
+        "cpu"] * 4
+    assert one.n_unique.sum() > 100_000
+    assert st.timings["exchange_bytes"] > 0
+    _assert_spread_equals_logical(st, one, ix, ixl, tmp_path)
+    b1, b2, b3 = per_card
+    assert b1.get(0, 0) >= 1 and b2.get(0, 0) >= 4 and b3.get(0, 0) >= 1
+
+
+def test_every_card_group_equals_the_logical_group(cuda, tmp_path):
+    """8 shards over every visible card (as many as divide 8) against 8
+    logical shards on one card, bitwise; B1, B2 and B3 launch on every
+    card."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards; {n} visible")
+    m = max(c for c in (1, 2, 4, 8) if c <= n)
+    cards = [f"cuda:{i}" for i in range(m)]
+    st, one, ix, ixl, per_card = _spread_case(cards, tmp_path)
+    _assert_spread_equals_logical(st, one, ix, ixl, tmp_path)
+    for name, counts in zip(("B1", "B2", "B3"), per_card):
+        assert all(counts.get(i, 0) >= 1 for i in range(m)), (name, counts)
