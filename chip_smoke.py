@@ -11,8 +11,9 @@ entry points (bench, the counting probes, the examples), end to end.
 
     python3 chip_smoke.py          # from the root of a checkout
 
-(``--rank SPEC RANK`` runs one rank of the sharded_procs or the
-sharded_index_procs phase; the phases start their ranks so.)
+(``--rank SPEC RANK`` runs one rank of the sharded_procs, the
+sharded_index_procs or the procs_devices phase; the phases start their
+ranks so.)
 
 Phases, each printing its own lines; any failure raises and the exit code
 is nonzero:
@@ -98,7 +99,8 @@ is nonzero:
              index, counting, file, threshold, probes, spill, probes_r3,
              cli, probes_dma, sharded, sharded_index, sharded_procs,
              sharded_index_procs, bench, e2e, hybrid_probe,
-             sharded_hybrid, large_pairs, counting_stress, multidevice), set
+             sharded_hybrid, large_pairs, counting_stress, multidevice,
+             procs_devices, demo), set
              to 0 just before each (in the ranks: at their start) and read
              just after, and with them the rows B3 merged;
    main (sharded) — the counting cell's reads through
@@ -161,6 +163,20 @@ is nonzero:
              and (c)'s checkpoint reloaded onto 8 shards; a rank's nonzero
              exit or timeout fails the run; launches counted in the ranks
              (path sharded_procs);
+   main (procs devices) — the shard group over processes and several
+             devices a process: 2 gloo ranks of this script sharing the
+             card, each on make_mesh(8, distributed=True, devices=[2
+             devices]): with ["cuda:0", "cuda:0"] a rank the command-line
+             phase's FASTQ through route (c) (lockstep) and route (b)
+             (byte ranges), hybrid, and the 40,000,000-base k=32 index with
+             tables(2|8), the drain and the k=21 query; with ["cuda:0",
+             "cpu"] a rank (every exchange crossing devices, the CPU half on
+             the plain versions) the first 8 batches' reads and the first
+             2^22 bases; every rank's shards, spectrum, total_added,
+             n_unique, index shards, tables, drain and query rows against
+             the one-process logical 8-shard group on the card, every shard
+             on device_of(d); launches counted in the ranks, per step and
+             per card (path procs_devices);
    main (spill) — the full-corpus regime through its entry point
              probes.spill_regime.run (the twin of the JAX package's
              tools/chip_probes/spill_regime.py): 244 batches x 29,696
@@ -184,8 +200,11 @@ is nonzero:
              as the counts' sum of c(c-1)/2, the chunk across pair 2^31
              equal to the CPU's from the index's arrays) and
              examples.counting_stress (200,000 reads through the file
-             entry). Before the main paths, B1-B3 are held against their
-             plain versions at these scripts' shapes;
+             entry), examples.demo on a seeded 60,000-base directory (every
+             figure equal to the same tour on the CPU; its kernels' calls,
+             recorded in a run before, held against their plain versions).
+             Before the main paths, B1-B3 are held against their plain
+             versions at these scripts' shapes;
 6. card vs CPU — index tables for k in {16, 21, 32}; the sharded index
              of the first 2^22 bases on 8 shards for the same k (shards,
              splitters, range shards, tables, pair drain); counting in all
@@ -526,6 +545,21 @@ def phase_kernels(rng):
         f"; a rank past the end) and each device's over the devices of one "
         f"process ({', '.join(map(str, MD_PARTS))} devices on {PREFIX:,} "
         f"and {SEQ_LEN:,} bases) (max_abs_err {worst})")
+    # the group over processes and devices gives B1 rank p's device i the
+    # rows of shards p*D/P + i*D/(P*M) ...: MD_SPREADS' P*M-part rows
+    pd_blocks = {(r * SHARDS // PD_P + i * SHARDS // (PD_P * PD_M),
+                  SHARDS // (PD_P * PD_M))
+                 for r in range(PD_P) for i in range(PD_M)}
+    md_blocks = {(j * SHARDS // m, SHARDS // m) for m in MD_PARTS
+                 for j in range(m)}
+    if not (pd_blocks <= md_blocks and all(
+            (PD_P * PD_M, n) in MD_SPREADS for n in (PREFIX, SEQ_LEN))):
+        raise AssertionError("the (rank, device) rows of B1 are not among "
+                             "the shapes checked above")
+    log(f"[kernels] B1: the (rank, device) rows of the group over {PD_P} "
+        f"processes x {PD_M} devices on {PREFIX:,} and {SEQ_LEN:,} bases "
+        f"are the {PD_P * PD_M}-device parts checked above (the same "
+        f"chunk_rows shards), not checked twice")
     # inputs shorter than a chunk or than k: rows of 1-17 bytes (several in
     # one chunk, each thread's row found by division), per-row lengths and
     # one length for every row; 1-D inputs of 1-20 bytes from byte offsets
@@ -1010,6 +1044,32 @@ def phase_kernels_scan(rng) -> float:
         f"blocks of {', '.join(f'{ROWS // m:,}' for m in MD_PARTS)} rows), "
         f"k={K_COUNT}, binned qualities")
     del seq, q, lengths, batch
+    # the (rank, device) blocks of the group over processes and devices:
+    # the file's batches ([32,768 x 152], and the cut file's last of 8,192
+    # rows) cut into PD_P rank blocks and each into PD_M device blocks, as
+    # the lockstep route and a rank's own batches deal them
+    pd_shapes = []
+    for rows in (PD_FILE_ROWS, PD_CUT_LAST):
+        seq, q, lengths = scan_batch(np.random.default_rng(SEED + 13),
+                                     K_COUNT, rows=rows, quals="stress",
+                                     L=PD_FILE_L)
+        lengths[4:] = READ_LEN
+        batch = (seq, q, lengths, torch.ones_like(lengths, dtype=torch.bool))
+        for p, block in enumerate(_row_blocks(batch, SHARDS, PD_P)):
+            for i, blk in enumerate(_row_blocks(block, SHARDS // PD_P, PD_M)):
+                for name, kw in VARIANTS.items():
+                    got = compare(blk[:3], K_COUNT, min_ll, kw,
+                                  f"{name}, rank {p} device {i} of "
+                                  f"[{rows} x {PD_FILE_L}]")
+                    if not int(got[0].sum()):
+                        raise AssertionError("B2 on a (rank, device) block "
+                                             "emitted nothing")
+                pd_shapes.append(tuple(blk[0].shape))
+        del seq, q, lengths, batch
+    log(f"[kernels] B2 == plain, bitwise, all three instantiations, on the "
+        f"(rank, device) blocks of the group over {PD_P} processes x {PD_M} "
+        f"devices: {len(pd_shapes)} blocks of shapes "
+        f"{sorted(set(pd_shapes))}, k={K_COUNT}, stress qualities")
     # the edges of the warp tiling (32 reads a warp, chunks of 16 positions,
     # windows of 512): a generator of their own keeps the sequence and the
     # reads below what the seed has always made them
@@ -3215,6 +3275,13 @@ MD_MIXED = ("cuda:0", "cpu")  # crosses devices on a one-card machine
 # 8 of them, as many as divide 8)
 MD_PARTS = (2, 4, 8)
 MD_SPREADS = tuple((m, n) for n in (PREFIX, SEQ_LEN) for m in MD_PARTS)
+# the group over processes and devices: PD_P gloo ranks of PD_M devices
+# each, sharing the card; the repeated layout runs the full cells, the
+# mixed one the cut of the multidevice phase (MD_BATCHES, PREFIX)
+PD_P, PD_M = 2, 2
+PD_LAYOUTS = {"repeated": ("cuda:0", "cuda:0"), "mixed": ("cuda:0", "cpu")}
+PD_FILE_ROWS, PD_FILE_L = 32_768, 152  # the file entry's batches
+PD_CUT_LAST = MD_BATCHES * ROWS % PD_FILE_ROWS  # the cut file's last batch
 
 
 def spread_wrappers():
@@ -3435,6 +3502,8 @@ def rank_worker(spec_path: str, rank: int) -> None:
     spec = json.loads(Path(spec_path).read_text())
     if spec.get("kind") == "index":
         return index_rank_worker(spec, rank)
+    if spec.get("kind") == "procs_devices":
+        return pd_rank_worker(spec, rank)
     info = api.init_distributed(spec["rdzv"], world_size=spec["P"],
                                 rank=rank)
     mesh = make_mesh(SHARDS, distributed=True)
@@ -4004,6 +4073,283 @@ def phase_main_sharded_index_procs(seq: np.ndarray, card: str):
     return tuple(total), summary
 
 
+# -- the shard group over processes and several devices a process ------------
+
+def pd_rank_worker(spec: dict, rank: int) -> None:
+    """One gloo rank of ``phase_main_procs_devices`` (``chip_smoke.py
+    --rank SPEC RANK`` with ``"kind": "procs_devices"``): on
+    make_mesh(8, distributed=True, devices=spec["devices"]), the counting
+    file through route (c) (KMH_HOST_SLICE=0, lockstep) and route (b)
+    (byte ranges), hybrid, then the k=32 ShardedKmerIndex of the
+    sequence with tables(2|8) and the full pair drain and the k=21 index
+    with seq_kmer_pos of the query; each step timed between barriers and
+    its launches counted from 0, in all and per card; every output
+    digested, each route's shards written; prints one JSON line."""
+    from kmer_hasher_tpu_torch import api
+    from kmer_hasher_tpu_torch.parallel import ShardedKmerIndex, make_mesh
+
+    info = api.init_distributed(spec["rdzv"], world_size=spec["P"],
+                                rank=rank)
+    torch.set_num_threads(spec["threads"])
+    devices = spec["devices"]
+    from kmer_hasher_tpu_torch.ops import cuda_encode as b1
+    from kmer_hasher_tpu_torch.ops import cuda_merge as b3
+
+    walls, launches, per_card, timings, rec = {}, {}, {}, {}, {}
+    moved = {"b3_rows": 0, "b1_positions": 0}
+
+    def step(name, fn, mesh):
+        reset_launches()
+        reset_by_device()
+        out = timed(walls, name, fn, mesh)
+        launches[name] = list(read_launches()[:3])
+        per_card[name] = read_by_device()
+        moved["b3_rows"] += b3.merge.rows
+        moved["b1_positions"] += b1.encode.positions
+        return out
+
+    for route, env in (("c", "0"), ("b", "1")):
+        mesh = make_mesh(SHARDS, distributed=True, devices=devices)
+        before = os.environ.get("KMH_HOST_SLICE")
+        os.environ["KMH_HOST_SLICE"] = env
+        try:
+            st = step(route, lambda: api.count_kmers_fq_sh_rp(
+                spec["path"], k=K_COUNT, min_q=MIN_Q, exact_ll="hybrid",
+                mesh=mesh), mesh)
+        finally:
+            if before is None:
+                del os.environ["KMH_HOST_SLICE"]
+            else:
+                os.environ["KMH_HOST_SLICE"] = before
+        on_card = [s for s in st.shards if s.device.type == "cuda"]
+        rec[route] = {
+            "spectrum": st.spectrum(255).tolist(),
+            "total_added": st.total_added.tolist(),
+            "n_unique": st.n_unique.tolist(),
+            "placed": [[str(s.device), s.keys.device.type,
+                        str(mesh.device_of(d))]
+                       for d, s in zip(mesh.local_shards, st.shards)],
+            "card_merges": sum(s.timings["tier_merges"]
+                               + s.timings["fold_merges"] for s in on_card),
+            "reads": st.timings["file_reads"]}
+        timings[route] = {k: v for k, v in st.timings.items()
+                          if not isinstance(v, str)}
+        np.savez(Path(spec["out"]) / f"r{rank}_{route}.npz", **{
+            f"{c}{d}": t.cpu().numpy()
+            for d, s in zip(mesh.local_shards, st.shards)
+            for c, t in (("k", s.keys), ("c", s.cnt))})
+        del st
+    seq = np.load(spec["seq"])
+    query = seq[QUERY_AT: QUERY_AT + QUERY_LEN]
+    mesh = make_mesh(SHARDS, distributed=True, devices=devices)
+
+    def index32():
+        ix = ShardedKmerIndex(seq, 32, mesh)
+        tabs = ix.tables(2 | 8)
+        pairs = Digest()
+        for chunk in ix.iter_pair_chunks():
+            pairs.add(chunk)
+        return ix, tabs, pairs
+
+    ix, tabs, pairs = step("index_k32", index32, mesh)
+    rec["index"] = {
+        "hash_shards": shard_digests(ix.shards),
+        "range_shards": shard_digests(ix._range_partitioned()),
+        "pos": digest(tabs["pos"]), "count": digest(tabs["count"]),
+        "pairs": pairs.value(), "n_valid": ix.n_valid.tolist(),
+        "placed": [[s.s_key.device.type, str(mesh.device_of(d))]
+                   for d, s in zip(mesh.local_shards, ix.shards)]}
+    timings["index_k32"] = dict(ix.timings)
+    del ix, tabs
+    def query21():
+        ix21 = ShardedKmerIndex(seq, 21, mesh)
+        rows = Digest()
+        for blk in ix21.iter_seq_kmer_pos(query, 21):
+            rows.add(blk)
+        return ix21, rows
+
+    ix21, rows = step("query_k21", query21, mesh)
+    rec["index"]["seq_kmer_pos"] = rows.value()
+    timings["query_k21"] = dict(ix21.timings)
+    del ix21
+    mesh.barrier()
+    print(json.dumps({"rank": rank, "info": info, "local": list(
+        mesh.local_shards), "devices": [str(d) for d in mesh.devices],
+        "walls": walls, "launches": launches, "per_card": per_card,
+        "timings": timings, **moved, **rec}), flush=True)
+
+
+def pd_references(path: Path, seq: np.ndarray, store=None) -> dict:
+    """What the ranks are held to: the one-process logical 8-shard group
+    on the card, its store of ``path`` (``store`` where it is counted
+    already; else counted here and timed) and its index of ``seq`` (the
+    k=32 index's shard digests, tables(2|8) and drain, the k=21 query's
+    rows; timed)."""
+    from kmer_hasher_tpu_torch import api
+    from kmer_hasher_tpu_torch.parallel import ShardedKmerIndex, make_mesh
+
+    walls = {}
+    if store is None:
+        store = timed(walls, "count", lambda: api.count_kmers_fq_sh_rp(
+            str(path), k=K_COUNT, min_q=MIN_Q, exact_ll="hybrid",
+            mesh=make_mesh(SHARDS)))
+    ix = timed(walls, "index_k32", lambda: ShardedKmerIndex(seq, 32,
+                                                            make_mesh(SHARDS)))
+    tabs = ix.tables(2 | 8)
+    pairs = Digest()
+    for chunk in ix.iter_pair_chunks():
+        pairs.add(chunk)
+    want = {"hash_shards": shard_digests(ix.shards),
+            "range_shards": shard_digests(ix._range_partitioned()),
+            "pos": digest(tabs["pos"]), "count": digest(tabs["count"]),
+            "pairs": pairs.value(), "n_valid": ix.n_valid.tolist()}
+    del ix, tabs
+    ix21 = ShardedKmerIndex(seq, 21, make_mesh(SHARDS))
+    want["seq_kmer_pos"] = digest(ix21.seq_kmer_pos(
+        seq[QUERY_AT: QUERY_AT + QUERY_LEN], 21))
+    del ix21
+    torch.cuda.empty_cache()
+    return {"store": store, "index": want, "walls": walls}
+
+
+def phase_main_procs_devices(fq: Path, full_store, full_wall: float,
+                             batches, seq: np.ndarray, tmp: Path, card: str):
+    """The shard group over processes and several devices a process: PD_P
+    gloo ranks of this script sharing the card (``--rank`` with ``"kind":
+    "procs_devices"``), each on make_mesh(8, distributed=True,
+    devices=[2 devices]), in two layouts. "repeated", ["cuda:0", "cuda:0"]
+    a rank: the full cells, the counting cell's 1,900,544 reads of the
+    command-line phase's FASTQ through route (c) and route (b), and the
+    40,000,000-base k=32 index with tables(2|8), the drain and the k=21
+    query. "mixed", ["cuda:0", "cpu"] a rank, every exchange crossing
+    devices and the CPU half running the plain versions: the multidevice
+    phase's cut, the first MD_BATCHES batches' reads and the first
+    PREFIX bases. Each rank's shards, spectrum(255), total_added and
+    n_unique equal the one-process logical 8-shard group's on the card
+    (for the full file, the file phase's store, counted in ``full_wall``
+    seconds), its index shards, tables,
+    drain and query rows too (sha256); every shard lies on device_of(d).
+    B1 launches once a card device a build and once a query, B2 on the
+    card devices' blocks, B3 as often as the card shards merged two runs
+    (path procs_devices, counted in the ranks from 0 and summed)."""
+    total = [0] * 3
+    b3_rows = b1_positions = 0
+    summary = {}
+    seq_path = tmp / "pd_seq.npy"
+    for layout, devices in PD_LAYOUTS.items():
+        if layout == "mixed":
+            path, part, store = tmp / "pd_cut.fq", seq[:PREFIX], None
+            write_fastq(path, batches[:MD_BATCHES], MD_BATCHES * ROWS)
+        else:
+            path, part, store = fq, seq, full_store
+        ref = pd_references(path, part, store)
+        if store is not None:
+            ref["walls"]["count"] = full_wall
+        np.save(seq_path, part)
+        torch.cuda.synchronize()
+        ranks, spawn_s = spawn_ranks(PD_P, path, tmp, f"pd_{layout}", extra={
+            "kind": "procs_devices", "devices": list(devices),
+            "seq": str(seq_path),
+            "threads": max(1, len(os.sched_getaffinity(0)) // PD_P)})
+        single = ref["store"]
+        want_spec = single.spectrum(255).tolist()
+        recs = [r for r, _f in ranks]
+        n_card = sum(torch.device(d).type == "cuda" for d in devices)
+        for rec in recs:
+            r, bad = rec["rank"], []
+            for route in ("c", "b"):
+                got = rec[route]
+                if (got["spectrum"] != want_spec
+                        or got["total_added"] != single.total_added.tolist()
+                        or got["n_unique"] != single.n_unique.tolist()):
+                    bad.append(f"route ({route}) spectrum / total_added / "
+                               f"n_unique")
+                if any(own != where or kind != torch.device(where).type
+                       for own, kind, where in got["placed"]):
+                    bad.append(f"route ({route}) placement {got['placed']}")
+                n = rec["launches"][route]
+                if n[1] < n_card or n[2] != got["card_merges"]:
+                    bad.append(f"route ({route}) launches B2 {n[1]}, B3 "
+                               f"{n[2]} (the card shards merged two runs "
+                               f"{got['card_merges']} times)")
+            ix = rec["index"]
+            bad += [key for key in ("pos", "count", "pairs", "n_valid",
+                                    "seq_kmer_pos") if ix[key] != ref[
+                                        "index"][key]]
+            for i, d in enumerate(rec["local"]):
+                if ix["hash_shards"][i] != ref["index"]["hash_shards"][d]:
+                    bad.append(f"hash shard {d}")
+                if ix["range_shards"][i] != ref["index"]["range_shards"][d]:
+                    bad.append(f"range shard {d}")
+            if any(kind != torch.device(where).type
+                   for kind, where in ix["placed"]):
+                bad.append(f"index placement {ix['placed']}")
+            b1 = (rec["launches"]["index_k32"][0],
+                  rec["launches"]["query_k21"][0])
+            if b1 != (n_card, n_card + 1):
+                bad.append(f"B1 launched {b1} times in the k=32 build and "
+                           f"in the k=21 build and query, want one a card "
+                           f"device a build ({n_card}) and one for the "
+                           f"query on the home card")
+            if bad:
+                raise AssertionError(f"procs_devices, {layout}, rank {r}: "
+                                     f"{'; '.join(bad)}")
+            for name, n in rec["launches"].items():
+                total = [a + b for a, b in zip(total, n)]
+            b3_rows += rec["b3_rows"]
+            b1_positions += rec["b1_positions"]
+        for route in ("c", "b"):
+            if not procs_tables_equal([(rec, f.parent / f"r{rec['rank']}_"
+                                        f"{route}.npz") for rec, f in ranks],
+                                      single):
+                raise AssertionError(f"procs_devices, {layout}, route "
+                                     f"({route}): the ranks' shards differ "
+                                     f"from the one-process group's")
+        slow = {key: max(r["walls"][key] for r in recs)
+                for key in recs[0]["walls"]}
+        per_rank = [{"rank": r["rank"], "devices": r["devices"],
+                     "walls": r["walls"], "launches": r["launches"],
+                     "per_card": r["per_card"],
+                     **{f"{step}_{key}": r["timings"][step].get(key, 0)
+                        for step in r["timings"]
+                        for key in ("exchange_bytes", "gather_bytes",
+                                    "exchange_s", "gather_s")}}
+                    for r in recs]
+        summary[layout] = {"devices": list(devices), "spawn_s": spawn_s,
+                           "slowest": slow, "reads": recs[0]["c"]["reads"],
+                           "bases": int(part.shape[0]),
+                           "one_process_s": ref["walls"],
+                           "ranks": per_rank}
+        log(f"[main] procs_devices: {layout}, {PD_P} gloo ranks on the card, "
+            f"make_mesh({SHARDS}, distributed=True, devices="
+            f"{list(devices)}) a rank: {recs[0]['c']['reads']:,} reads "
+            f"through route (c) (lockstep) and route (b) (byte ranges), "
+            f"hybrid; the k=32 index of {part.shape[0]:,} bases, "
+            f"tables(2|8) and the drain; the k=21 query: every rank's "
+            f"shards, spectrum(255), total_added, n_unique, index shards, "
+            f"tables, drain and query rows equal the one-process logical "
+            f"8-shard group's, every shard on device_of(d); slowest rank: "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in slow.items())
+            + f" (spawn to exit {spawn_s:.1f} s); one process, logical: "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in ref["walls"].items())
+            + "; " + "; ".join(
+                f"rank {r['rank']}: "
+                + ", ".join(f"{step} exchange "
+                            f"{r[f'{step}_exchange_bytes'] / 1e6:.1f} MB / "
+                            f"gather {r[f'{step}_gather_bytes'] / 1e6:.1f} MB"
+                            for step in ("c", "b", "index_k32", "query_k21"))
+                + ", launches B1/B2/B3 per card "
+                + ", ".join(f"{step} {r['per_card'][step]}"
+                            for step in r["per_card"])
+                for r in per_rank)
+            + f" | {card}")
+        del ref, single
+        torch.cuda.empty_cache()
+    B3_ROWS["procs_devices"] = b3_rows
+    B1_POSITIONS["procs_devices"] = b1_positions
+    return tuple(total) + (0,) * (len(counted_wrappers()) - 3), summary
+
+
 def phase_card_vs_cpu_sharded(batches, tmp: Path) -> None:
     """8 shards on the card against 8 on the CPU: a spill budget below one
     run, to memory and to files; an 8-shard checkpoint round trip, and its
@@ -4177,6 +4523,114 @@ def phase_kernels_tools() -> dict:
     return worst
 
 
+# the demo twin's directory: test.fa, test.fastq.gz and repeat_40.fq
+DEMO_BASES, DEMO_READS, DEMO_READ_LEN, DEMO_REPEATS = 60_000, 2_000, 150, 40
+DEMO_REPEAT_AT = 40_000  # an ACTGG stretch that 100 of the reads cover
+
+
+def write_demo_data(d: Path) -> None:
+    """The three files the demo reads, from SEED + 14: one 60,000-base
+    record; 2,000 reads of 150 bases drawn from it with 0.5% substitutions
+    at Q30-Q40, the first 100 over an ACTGG stretch in it, gzipped; 40
+    ACTGG repeat reads of 200 bases at Q30-Q40."""
+    import gzip
+
+    rng = np.random.default_rng(SEED + 14)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    seq = bases[rng.integers(0, 4, DEMO_BASES)]
+    seq[DEMO_REPEAT_AT:DEMO_REPEAT_AT + 600] = np.frombuffer(b"ACTGG" * 120,
+                                                             np.uint8)
+    text = seq.tobytes().decode()
+    (d / "test.fa").write_text(">demo seeded\n" + "\n".join(
+        text[i:i + 80] for i in range(0, DEMO_BASES, 80)) + "\n")
+    recs = []
+    for i in range(DEMO_READS):
+        a = (DEMO_REPEAT_AT + 4 * i if i < 100
+             else int(rng.integers(0, DEMO_BASES - DEMO_READ_LEN)))
+        r = seq[a:a + DEMO_READ_LEN].copy()
+        sub = rng.random(DEMO_READ_LEN) < 0.005
+        r[sub] = bases[rng.integers(0, 4, int(sub.sum()))]
+        q = rng.integers(33 + 30, 33 + 41, DEMO_READ_LEN).astype(np.uint8)
+        recs.append(b"@r%d\n%s\n+\n%s\n" % (i, r.tobytes(), q.tobytes()))
+    (d / "test.fastq.gz").write_bytes(gzip.compress(b"".join(recs)))
+    rep = []
+    for i in range(DEMO_REPEATS):
+        r = (b"ACTGG" * 45)[i % 5: i % 5 + 200]
+        q = rng.integers(33 + 30, 33 + 41, len(r)).astype(np.uint8)
+        rep.append(b"@rep%d\n%s\n+\n%s\n" % (i, r, q.tobytes()))
+    (d / "repeat_40.fq").write_bytes(b"".join(rep))
+
+
+def record_calls(fn):
+    """``fn()`` with every call of the B1, B2 and B3 wrappers on CUDA
+    tensors recorded (the wrappers still run, and count): (its result,
+    [(kernel, the inputs cloned, keywords, the outputs)])."""
+    from kmer_hasher_tpu_torch.ops import cuda_encode as b1
+    from kmer_hasher_tpu_torch.ops import cuda_merge as b3
+    from kmer_hasher_tpu_torch.ops import cuda_scan as b2
+
+    calls = []
+    real = [(b1, "encode", "B1"), (b2, "scan", "B2"), (b3, "merge", "B3")]
+
+    def recorder(wrapper, name):
+        def call(*args, **kw):
+            held = [a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args]
+            out = wrapper(*args, **kw)
+            if args[0].is_cuda:
+                calls.append((name, held, kw, out))
+            return out
+        # the wrapper counts through its module's name, which now names
+        # this function: share its counters
+        call.__dict__ = wrapper.__dict__
+        return call
+
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _n in real]
+    for (mod, attr, name), (_m, _a, wrapper) in zip(real, saved):
+        setattr(mod, attr, recorder(wrapper, name))
+    try:
+        out = fn()
+    finally:
+        for mod, attr, wrapper in saved:
+            setattr(mod, attr, wrapper)
+    return out, calls
+
+
+def hold_recorded(calls) -> dict:
+    """Each recorded call's outputs against its kernel's plain version on
+    the same inputs, bitwise. Returns the worst error by kernel and the
+    calls' shapes."""
+    from kmer_hasher_tpu_torch.ops import cuda_encode as b1
+    from kmer_hasher_tpu_torch.ops import cuda_merge as b3
+    from kmer_hasher_tpu_torch.ops import cuda_scan as b2
+
+    worst = {"B1": 0.0, "B2": 0.0, "B3": 0.0}
+    shapes = {"B1": set(), "B2": set(), "B3": set()}
+    for name, args, kw, out in calls:
+        if name == "B1":
+            x, k, t = args
+            if not np.isscalar(t):
+                t = torch.as_tensor(np.asarray(t.cpu() if isinstance(
+                    t, torch.Tensor) else t), device=x.device)
+            want = b1.plain(x, k, t)
+        elif name == "B2":
+            want = b2.plain(*args, **kw)
+        else:
+            want = b3.plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(g, w) for g, w in zip(out, want)
+                  if isinstance(g, torch.Tensor))
+        worst[name] = max(worst[name], err)
+        shapes[name].add(tuple(args[0].shape))
+        if err or len(out) != len(want):
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on the demo's input {tuple(args[0].shape)}"
+                                 f", max_abs_err={err}")
+    return {"worst": worst, "shapes": {n: sorted(v) for n, v in
+                                       shapes.items()},
+            "calls": len(calls)}
+
+
 def phase_main_tools(card: str):
     """The user scripts and measurement entry points at their sources'
     defaults, each a path of its own with its launches counted: bench
@@ -4186,9 +4640,11 @@ def phase_main_tools(card: str):
     300 copies streamed to the host and drained on the card, then 1,000
     copies drained on the card: more than 2^31 pairs, the rows drained
     against the counts, the chunk that crosses pair 2^31 against the same
-    chunk from the index's arrays on the CPU) and counting_stress (200,000
-    reads through the file entry). Returns (launches by path, the scripts'
-    records)."""
+    chunk from the index's arrays on the CPU), counting_stress (200,000
+    reads through the file entry) and the demo (a seeded 60,000-base
+    directory; its kernels' calls held against their plain versions in a
+    run before, its figures against the same tour on the CPU). Returns
+    (launches by path, the scripts' records)."""
     from kmer_hasher_tpu_torch import bench
     from kmer_hasher_tpu_torch.examples import counting_stress, large_pairs
     from kmer_hasher_tpu_torch.index.position_index import _pair_chunk
@@ -4305,6 +4761,30 @@ def phase_main_tools(card: str):
             f"and B3 {launches['counting_stress'][2]} times; the store "
             f"merged two runs {merges} times")
     records["counting_stress"] = rec
+
+    # the demo twin on a seeded directory: first its kernels' calls held
+    # against their plain versions (not counted), then the path, then the
+    # same tour on the CPU, figure by figure
+    from kmer_hasher_tpu_torch.examples import demo
+
+    with tempfile.TemporaryDirectory() as d:
+        write_demo_data(Path(d))
+        _rec, calls = record_calls(lambda: demo.main(["--data", d]))
+        held = hold_recorded(calls)
+        log(f"[kernels] at the demo's shapes, bitwise: {held['calls']} "
+            f"calls, inputs {held['shapes']} (max_abs_err {held['worst']})")
+        rec = path("demo", lambda: demo.main(["--data", d]))
+        on_cpu = demo.main(["--data", d, "--device", "cpu"])
+    differ = [key for key in rec if key != "card" and rec[key] != on_cpu[key]]
+    if differ or not (rec["distinct"] > 0 and rec["in_both"] > 0):
+        raise AssertionError(f"demo: the card's figures {differ} differ "
+                             f"from the CPU's, or nothing was counted")
+    if not (launches["demo"][0] and launches["demo"][1]):
+        raise AssertionError(f"demo launched {launches['demo'][:3]}")
+    log(f"[main] tools: demo on {DEMO_BASES:,} bases, {DEMO_READS:,} reads "
+        f"and {DEMO_REPEATS} repeat reads: every figure equals the same tour "
+        f"on the CPU ({len(rec) - 1} figures) | {card}")
+    records["demo"] = dict(rec, kernels=held)
     return launches, records
 
 
@@ -4339,7 +4819,7 @@ PATHS = ("index", "merge_sort_index", "counting", "file", "threshold",
          "probes", "spill", "probes_r3", "cli", "probes_dma", "sharded",
          "sharded_index", "sharded_procs", "sharded_index_procs", "bench",
          "e2e", "hybrid_probe", "sharded_hybrid", "large_pairs",
-         "counting_stress", "multidevice")
+         "counting_stress", "multidevice", "procs_devices", "demo")
 # the paths whose B3 launches are rounds of a merge sort (32-bit payload),
 # not two-run merges of the count store (implicit payload)
 SORT_ROUND_PATHS = ("merge_sort_index", "probes_dma", "sharded_index",
@@ -4406,6 +4886,9 @@ def main() -> None:
         launches["sharded_procs"], procs_stats = phase_main_sharded_procs(
             Path(tmp) / "reads.fq", Path(tmp) / "reads50k.fq", sh_big,
             sh_big_wall, Path(tmp), card)
+        launches["procs_devices"], pd_stats = phase_main_procs_devices(
+            Path(tmp) / "reads.fq", sh_big, sh_big_wall, batches, seq,
+            Path(tmp), card)
         del sh_big
         phase_card_vs_cpu_cli(Path(tmp) / "reads50k.fq", Path(tmp))
         phase_card_vs_cpu_sharded(batches, Path(tmp))
@@ -4417,6 +4900,10 @@ def main() -> None:
     launches["spill"] = phase_main_spill(card)
     more, tools = phase_main_tools(card)
     launches.update(more)
+    demo_worst = tools["demo"]["kernels"]["worst"]
+    worst_b1 = max(worst_b1, demo_worst["B1"])
+    worst_b2 = max(worst_b2, demo_worst["B2"])
+    worst_b3 = max(worst_b3, demo_worst["B3"])
     by_path = [{p: launches[p][i] for p in PATHS}
                for i in range(len(counted_wrappers()))]
     b3_rows = {p: B3_ROWS[p] for p in PATHS}
@@ -4594,7 +5081,8 @@ def main() -> None:
              "full"),
         ), start=11)], "turns": turns, "file_entry": cli_stats,
         "sharded_procs": procs_stats, "sharded_index_procs": ix_procs,
-        "tools": tools, "multidevice": md_stats}))
+        "tools": tools, "multidevice": md_stats,
+        "procs_devices": pd_stats}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -389,9 +389,10 @@ def _sweep_backlog(store: CountStore, backlog: list, k: int, source: int,
 
     For a store over several processes, where ranks flag reads in
     different batches, every sweep is one add on every rank: the flagged
-    reads of all batches, padded to the widest, in one exact scan (or an
-    empty add where the rank has none). Over several devices each device's
-    blocks are re-counted on that device."""
+    reads of all batches, padded to the widest, in one exact scan on the
+    store's home device (or an empty add where the rank has none). In one
+    process over several devices each device's blocks are re-counted on
+    that device."""
     collective = _spans_processes(store)
     if not backlog and not collective:
         return 0
@@ -412,12 +413,13 @@ def _sweep_backlog(store: CountStore, backlog: list, k: int, source: int,
     if collective:
         if picked:
             L = max(b[0].shape[1] for b in picked)
+            dev = store.device  # a rank's blocks may lie on its devices
             seq_c = torch.cat([torch.nn.functional.pad(
-                b[0], (0, L - b[0].shape[1]), value=ord("N"))
+                b[0].to(dev), (0, L - b[0].shape[1]), value=ord("N"))
                 for b in picked])
             qual_c = torch.cat([torch.nn.functional.pad(
-                b[1], (0, L - b[1].shape[1])) for b in picked])
-            len_c = torch.cat([b[2] for b in picked])
+                b[1].to(dev), (0, L - b[1].shape[1])) for b in picked])
+            len_c = torch.cat([b[2].to(dev) for b in picked])
             r = _fused_rp_batch(seq_c, qual_c, len_c,
                                 torch.ones_like(len_c, dtype=torch.bool), k,
                                 store.counts_n, source, min_ll_f, "exact",
@@ -849,15 +851,17 @@ def _warn_gzip_lockstep(path) -> None:
         stacklevel=3)
 
 
-def _row_blocks(batch, n_shards: int, parts: int) -> List[tuple]:
+def _row_blocks(batch, shards: int, parts: int) -> List[tuple]:
     """A (seq, qual, lengths, has_qual) batch — host numpy arrays or
     tensors — padded with empty rows ('N', no length, no qualities) to a
-    multiple of ``n_shards`` rows and cut into ``parts`` contiguous blocks
-    of one size (``parts`` divides ``n_shards``): the JAX package's rows a
-    device, dealt to ranks (route (c)) or to the devices of one process.
-    One part is the batch as it is, unpadded."""
+    multiple of ``shards`` rows (the shards its rows are dealt over) and
+    cut into ``parts`` contiguous blocks of one size (``parts`` divides
+    ``shards``): the JAX package's rows a device, dealt to ranks (route
+    (c): the D shards over P ranks) or to the devices of one rank (its
+    D/P shards over its M devices). One part is the batch as it is,
+    unpadded."""
     B = int(batch[2].shape[0])
-    pad = -B % n_shards if parts > 1 else 0
+    pad = -B % shards if parts > 1 else 0
     if pad:
         batch = tuple(_pad_rows(a, pad, fill)
                       for a, fill in zip(batch[:4], (ord("N"), 0, 0, False)))
@@ -875,7 +879,11 @@ def _pad_rows(a, pad: int, fill):
 def _lockstep_rows(batches: Iterable, mesh) -> Iterator[tuple]:
     """Route (c): each whole-file batch padded with empty rows to a
     multiple of D, then this rank's contiguous block of its rows, with the
-    batch's record count as the fifth item."""
+    batch's record count as the fifth item. The block is a multiple of the
+    rank's D/P shards, so ``ShardedCountStore.add_reads`` cuts it into
+    its M devices' blocks with no more padding: rank p's device i takes
+    block p*M + i of the batch cut into P*M (for D = P*M, the rows the
+    JAX mesh gives each chip)."""
     P, p = mesh.process_count, mesh.process_index
     for b in batches:
         yield (*_row_blocks(b, mesh.size, P)[p], int(b[2].shape[0]))

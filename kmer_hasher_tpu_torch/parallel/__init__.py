@@ -5,7 +5,9 @@ device mesh: D shards on one device, spread over several devices of one
 process (``make_mesh(D, devices=[...])``, the JAX mesh's device list), or
 spread over the processes of a ``torch.distributed`` group
 (:mod:`.distributed`: ``init_distributed``, ``host_read_slice`` and the
-host collectives; gloo by default, several ranks may share one card). :mod:`.sharded` holds
+host collectives; gloo by default, several ranks may share one card), or
+both at once (``make_mesh(D, distributed=True, devices=[...])``: each
+rank's shards over its own devices). :mod:`.sharded` holds
 ``owner_hash``, the sharded count store, which counts in one process or
 over several (``count_kmers_fq_sh_rp(mesh=make_mesh(D, distributed=True))``
 and its three routes over files), and the sharded position index

@@ -39,7 +39,11 @@ def init_distributed(init_method: Optional[str] = None,
     ``process_index``, ``process_count``, ``local_devices`` (the cards this
     process sees, or 1, the host, where it sees none) and
     ``global_devices`` (their sum over the processes: ranks that share one
-    card count it once each)."""
+    card count it once each). A shard group over the processes that also
+    spreads each rank's shards over several devices
+    (``make_mesh(D, distributed=True, devices=[...])``) takes each rank's
+    ``devices`` as that rank's own: its local devices, which other ranks
+    may name too where they share a card."""
     if not dist.is_initialized():
         if world_size is not None and int(world_size) > 1:
             dist.init_process_group(backend, init_method=init_method,

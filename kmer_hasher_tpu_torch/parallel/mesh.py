@@ -28,8 +28,15 @@ with exact split sizes (no capacity padding), staged through pinned host
 memory. Every rank must call it the same number of times, also with no
 rows, or the ranks wait on each other for ever. :meth:`ShardGroup.gather_shards`
 gives every rank all D shards' tensors (the JAX package's ``_host_read``),
-under the same rule. A group over processes and several devices at once
-is not supported yet.
+under the same rule.
+
+The two spreads combine (``make_mesh(D, distributed=True, devices=[...])``,
+the JAX mesh over several hosts with several chips each): ``devices`` is
+then each rank's own list of M devices (every rank names M of them, M
+dividing D/P; the devices may differ from rank to rank), and rank p holds
+its D/P shards on them in contiguous blocks. The exchange takes one source
+a device on every rank; a shard receives its pieces in (rank, source)
+order and lands on its own device.
 """
 from __future__ import annotations
 
@@ -48,13 +55,15 @@ class ShardGroup:
     """D shards. ``size`` is D, ``shape`` the layout it was asked for
     ((D,), or (slices, shards per slice)), ``device`` the home device:
     where this process's inputs arrive and collected results land, and
-    where its shards live unless ``devices`` spreads them. ``devices`` (M
-    devices, M dividing D; a device may repeat) puts shard d on
-    ``devices[d * M // D]`` (:meth:`device_of`, :meth:`shards_on`); the
-    home then defaults to ``devices[0]``. With ``processes`` the group
-    spans the default process group: ``process_count`` P (which must
-    divide D), ``process_index`` this rank, ``local_shards`` the range of
-    shards it owns; without, one process owns all D."""
+    where its shards live unless ``devices`` spreads them. With
+    ``processes`` the group spans the default process group:
+    ``process_count`` P (which must divide D), ``process_index`` this
+    rank, ``local_shards`` the range of shards it owns; without, one
+    process owns all D. ``devices`` (M devices of this process, M dividing
+    its D/P shards; a device may repeat) puts this process's shards on
+    them in contiguous blocks (:meth:`device_of`, :meth:`shards_on`); the
+    home then defaults to ``devices[0]``. Over processes every rank names
+    as many devices, each its own."""
 
     def __init__(self, n_shards: int, device=None,
                  shape: Optional[Sequence[int]] = None,
@@ -67,15 +76,13 @@ class ShardGroup:
         self.axis_names = ("shard",) if len(self.shape) == 1 else (
             "dcn", "ici")
         if devices is not None:
-            if processes:
-                raise ValueError("a shard group over processes takes no "
-                                 "devices= yet: one device per process")
             devices = tuple(_indexed(d) for d in devices)
-            if not devices or n_shards % len(devices):
+            if not devices:
                 raise ValueError(f"{n_shards} shards do not split evenly "
-                                 f"over {len(devices)} devices")
+                                 f"over 0 devices")
         if devices is None:
-            self.device = resolve_device("cuda" if device is None else device)
+            # indexed, so that a shard's tensors compare equal to it
+            self.device = _indexed("cuda" if device is None else device)
             self.devices = (self.device,)
         else:
             self.device = devices[0] if device is None else _indexed(device)
@@ -88,11 +95,21 @@ class ShardGroup:
         if n_shards % P:
             raise ValueError(f"{n_shards} shards do not split evenly over "
                              f"{P} processes")
+        per, M = n_shards // P, len(self.devices)
+        if per % M:
+            raise ValueError(f"{per} shards{' a process' if P > 1 else ''} "
+                             f"do not split evenly over {M} devices")
+        if P > 1:  # the exchange sends M sources from every rank
+            got = distributed.allgather([M])[:, 0]
+            if (got != M).any():
+                raise ValueError(f"the ranks name {got.tolist()} devices: "
+                                 f"every rank must name as many")
         self.process_count = P
         self.process_index = distributed.process_index() if processes else 0
-        per = n_shards // P
         self.local_shards = range(self.process_index * per,
                                   (self.process_index + 1) * per)
+        self._pin = any(d.type == "cuda" for d in (self.device,
+                                                   *self.devices))
 
     def __repr__(self) -> str:
         procs = (f", processes={self.process_count}"
@@ -114,8 +131,14 @@ class ShardGroup:
         return len(self.devices) > 1
 
     def device_of(self, d: int) -> torch.device:
-        """The device shard d lives on."""
-        return self.devices[d * len(self.devices) // self.size]
+        """The device shard d lives on: by its place in ``local_shards``.
+        Raises for a shard another process holds."""
+        i = d - self.local_shards.start
+        if not 0 <= i < len(self.local_shards):
+            raise ValueError(
+                f"shard {d} is not this process's: it holds shards "
+                f"{self.local_shards.start}-{self.local_shards.stop - 1}")
+        return self.devices[i * len(self.devices) // len(self.local_shards)]
 
     def shards_on(self, i: int) -> range:
         """The shards this process holds on its i-th device: a contiguous
@@ -145,25 +168,29 @@ class ShardGroup:
     def exchange(self, owner, *cols, by_rank: bool = False,
                  stats: Optional[dict] = None) -> list:
         """Route rows to their owners: for each shard d this process owns,
-        the rows of every column whose ``owner`` is d, from every source in
-        source order, each source's in their order (a stable regrouping, so
-        a column sorted in every source stays sorted within each source's
-        piece). With ``by_rank`` each shard's entry is a list of such column
-        tuples, one per source, instead of their concatenation.
+        on its device, the rows of every column whose ``owner`` is d, from
+        every source in source order, each source's in their order (a
+        stable regrouping, so a column sorted in every source stays sorted
+        within each source's piece). With ``by_rank`` each shard's entry is
+        a list of such column tuples, one per source, instead of their
+        concatenation.
 
-        A source is ``owner`` and the columns, one tensor each. In one
-        process they may instead be lists of equal length, one source each
-        (over several devices: one a device, in device order); over
-        processes every rank is one source.
+        A source is ``owner`` and the columns, one tensor each; they may
+        instead be lists of equal length, one source each (over several
+        devices: one a device, in device order). Over processes every rank
+        sends M sources (M the number of its devices: fewer are made up
+        with empty ones), and the sources are those of every rank in
+        (rank, source) order.
 
         In one process: one readback a source, its D bucket sizes; over
         several devices each bucket is then copied to its owner's device.
         Over processes: the sizes go to their owners by one
         ``all_to_all_single``, then each column by one more with exact
-        splits, through host memory. ``stats`` gains ``exchanges``,
-        ``exchange_s`` and ``exchange_bytes`` (the bytes sent to other
-        ranks or copied to other devices) over processes and over several
-        devices."""
+        splits, through host memory, and on to each of the rank's devices
+        once (a shard's pieces are views of the column on its device).
+        ``stats`` gains ``exchanges``, ``exchange_s`` and
+        ``exchange_bytes`` (the bytes sent to other ranks or copied to
+        other devices) over processes and over several devices."""
         t0 = time.perf_counter()
         if isinstance(owner, (list, tuple)):
             sources = [(o, *(c[i] for c in cols)) for i, o in enumerate(owner)]
@@ -172,10 +199,7 @@ class ShardGroup:
         if not self.distributed:
             out, sent = self._regroup(sources)
         else:
-            if len(sources) != 1:
-                raise ValueError("over processes every rank is one source")
-            owner, *cols = sources[0]
-            out, sent = self._all_to_all(*self._by_owner(owner), cols)
+            out, sent = self._all_to_all(sources)
         if stats is not None and (self.distributed or self.multi_device):
             stats["exchanges"] = stats.get("exchanges", 0) + 1
             stats["exchange_s"] = stats.get("exchange_s", 0.0) + (
@@ -222,27 +246,28 @@ class ShardGroup:
                       rows: Sequence[int], stats: Optional[dict] = None
                       ) -> List[torch.Tensor]:
         """Every shard's tensor, the D of them in shard order, on every
-        rank: ``local`` holds this rank's, one for each of ``local_shards``
-        (of one dtype and one shape past the first axis on every rank, also
-        where a shard has no rows); ``rows`` are the D lengths, which every
-        rank must know. Other ranks' rows come through pinned host memory
-        onto the group's device; this rank's own are returned as given. In
-        one process on one device, ``list(local)``; over several devices,
-        each tensor on the home device. ``stats`` gains ``gathers``,
-        ``gather_s`` and ``gather_bytes`` (the bytes this rank received
-        from other ranks or copied from other devices)."""
+        rank, on the home device: ``local`` holds this rank's, one for each
+        of ``local_shards`` on its device (of one dtype and one shape past
+        the first axis on every rank, also where a shard has no rows);
+        ``rows`` are the D lengths, which every rank must know. Other
+        ranks' rows come through pinned host memory; this rank's own are
+        returned as given where they lie on the home device, else copied
+        there. In one process on one device, ``list(local)``. ``stats``
+        gains ``gathers``, ``gather_s`` and ``gather_bytes`` (the bytes
+        this rank received from other ranks or copied from other
+        devices)."""
         local = list(local)
         if not (self.distributed or self.multi_device):
             return local
         t0 = time.perf_counter()
-        if self.multi_device:
-            home = self.device
-            got = sum(_nbytes(t) for t in local if t.device != home)
-            wait = {t.device for t in local if _to_host_async(t, home)}
-            out = [t.to(home, non_blocking=True) for t in local]
-            _land(wait)
-        else:
-            out, got = self._all_gather(local, rows)
+        home = self.device
+        got = sum(_nbytes(t) for t in local if t.device != home)
+        wait = {t.device for t in local if _to_host_async(t, home)}
+        out = [t.to(home, non_blocking=True) for t in local]
+        _land(wait)
+        if self.distributed:
+            out, received = self._all_gather(local, out, rows)
+            got += received
         if stats is not None:
             stats["gathers"] = stats.get("gathers", 0) + 1
             stats["gather_s"] = stats.get("gather_s", 0.0) + (
@@ -250,57 +275,83 @@ class ShardGroup:
             stats["gather_bytes"] = stats.get("gather_bytes", 0) + got
         return out
 
-    def _all_gather(self, local: List[torch.Tensor], rows: Sequence[int]):
-        """The process form of :meth:`gather_shards`: (the D tensors, bytes
-        received from other ranks)."""
+    def _all_gather(self, local: List[torch.Tensor],
+                    mine: List[torch.Tensor], rows: Sequence[int]):
+        """The process form of :meth:`gather_shards`: (the D tensors, this
+        rank's ``mine`` among them, bytes received from other ranks)."""
         P, me = self.process_count, self.process_index
         per = self.size // P
         rows = [int(n) for n in rows]
         dtype = local[0].dtype
         blocks = distributed.all_gather_rows(
-            _to_host(torch.cat(local)),
-            [sum(rows[r * per:(r + 1) * per]) for r in range(P)],
-            pin_memory=self.device.type == "cuda")
+            _host_cat(local), [sum(rows[r * per:(r + 1) * per])
+                               for r in range(P)], pin_memory=self._pin)
         out, got = [], 0
         for r, blk in enumerate(blocks):
             if r == me:
-                out.extend(local)
+                out.extend(mine)
                 continue
             got += blk.numel() * blk.element_size()
             out.extend(torch.split(_from_host(blk, dtype, self.device),
                                    rows[r * per:(r + 1) * per]))
         return out, got
 
-    def _all_to_all(self, order: torch.Tensor, sizes: List[int],
-                    cols: Sequence[torch.Tensor]):
+    def _all_to_all(self, sources: list):
         """The process form of :meth:`exchange`: (for each local shard a
-        list over sending ranks of column tuples, bytes sent to others)."""
+        list over (sending rank, its source) of column tuples on the
+        shard's device, bytes sent to others or copied to another
+        device)."""
         P, me = self.process_count, self.process_index
-        per = self.size // P
-        send = torch.tensor(sizes, dtype=torch.int64)
-        recv = torch.empty_like(send)  # [P, per]: rank r's rows for my shards
-        dist.all_to_all_single(recv, send)
-        recv = recv.view(P, per)
-        send_rows = [sum(sizes[q * per:(q + 1) * per]) for q in range(P)]
-        recv_rows = recv.sum(1).tolist()
-        sent = 8 * per * (P - 1)
-        out_cols = []
-        for c in cols:
-            src = c[order]
-            row = int(np.prod(src.shape[1:])) * src.element_size()
-            sent += row * (sum(send_rows) - send_rows[me])
-            host = _to_host(src)
-            got = torch.empty((sum(recv_rows), *src.shape[1:]),
-                              dtype=host.dtype,
-                              pin_memory=self.device.type == "cuda")
-            dist.all_to_all_single(got, host, recv_rows, send_rows)
-            out_cols.append(_from_host(got, c.dtype, self.device))
-        # rank r's block holds its rows for my shards in shard order
+        per, M = self.size // P, len(self.devices)
+        if len(sources) > M:
+            raise ValueError(f"over processes a rank sends at most one "
+                             f"source a device: {len(sources)} sources, "
+                             f"{M} devices")
+        sources = sources + [  # made up to M, as every rank sends M
+            tuple(c[:0].to(self.device) for c in sources[0])
+            for _ in range(M - len(sources))]
+        ordered = [self._by_owner(s[0]) for s in sources]
+        # [P, M, per]: the rows source s sends to each shard of rank q
+        send = torch.tensor([[sizes[q * per:(q + 1) * per]
+                              for _order, sizes in ordered]
+                             for q in range(P)], dtype=torch.int64)
+        recv = torch.empty_like(send)  # rank r's source s's rows a shard
+        dist.all_to_all_single(recv.view(-1), send.view(-1))
+        send_rows = send.sum((1, 2)).tolist()
+        recv_rows = recv.sum((1, 2)).tolist()
+        sent = 8 * M * per * (P - 1)
+        # where each source's rows for rank q start, in its sorted order
+        starts = [np.concatenate([[0], np.cumsum(sizes)])[::per]
+                  for _order, sizes in ordered]
         bounds = np.concatenate([[0], np.cumsum(recv.reshape(-1).numpy())])
-        pieces = [[tuple(col[bounds[r * per + i]:bounds[r * per + i + 1]]
-                         for col in out_cols) for r in range(P)]
-                  for i in range(per)]
-        return pieces, sent
+        blocks = device_blocks(self)
+        out_cols = []
+        for j in range(1, len(sources[0])):
+            srcs = [s[j][o] for s, (o, _z) in zip(sources, ordered)]
+            row = int(np.prod(srcs[0].shape[1:])) * srcs[0].element_size()
+            sent += row * (sum(send_rows) - send_rows[me])
+            for s, src in enumerate(srcs):  # rows to my shards elsewhere
+                for dev, mine in blocks:
+                    if src.device != dev:
+                        sent += row * int(send[me, s, mine.start:mine.stop]
+                                          .sum())
+            # in (destination rank, source) order; one source is in it
+            host = _to_host(srcs[0]) if M == 1 else _host_cat(
+                [src[int(starts[s][q]):int(starts[s][q + 1])]
+                 for q in range(P) for s, src in enumerate(srcs)])
+            got = torch.empty((sum(recv_rows), *host.shape[1:]),
+                              dtype=host.dtype, pin_memory=self._pin)
+            dist.all_to_all_single(got, host, recv_rows, send_rows)
+            # the column once on each of this rank's devices
+            out_cols.append({dev: _from_host(got, srcs[0].dtype, dev)
+                             for dev in dict.fromkeys(self.devices)})
+        # received: rank r's source s's rows for my shard i at
+        # (r*M + s)*per + i
+        first = self.local_shards.start
+        return [[tuple(col[self.device_of(first + i)][
+            int(bounds[rs * per + i]):int(bounds[rs * per + i + 1])]
+            for col in out_cols) for rs in range(P * M)]
+            for i in range(per)], sent
 
 
 def _indexed(device) -> torch.device:
@@ -345,6 +396,20 @@ def _land(cards) -> None:
         torch.cuda.current_stream(dev).synchronize()
 
 
+def _host_cat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Tensors of one dtype, on any devices, concatenated in order as one
+    host tensor gloo can send: each run of tensors on one device joined
+    there and copied once."""
+    runs: List[list] = []
+    for t in tensors:
+        if runs and runs[-1][0].device == t.device:
+            runs[-1].append(t)
+        else:
+            runs.append([t])
+    host = [_to_host(torch.cat(r)) for r in runs]
+    return host[0] if len(host) == 1 else torch.cat(host)
+
+
 def _to_host(t: torch.Tensor) -> torch.Tensor:
     """``t`` as a contiguous host tensor gloo can send: device rows copied
     to pinned memory, bool viewed as bytes."""
@@ -372,8 +437,10 @@ def make_mesh(n_devices: Optional[int] = None, device=None,
     (the card, by default); with ``devices``, spread over those devices
     (shard d on ``devices[d * M // D]``, the home ``device`` defaulting to
     ``devices[0]``); with ``distributed``, spread over the default process
-    group's ranks (:func:`.distributed.init_distributed` first). The two
-    spreads do not combine yet."""
+    group's ranks (:func:`.distributed.init_distributed` first). With both,
+    rank p's D/P shards are spread over its own ``devices`` in contiguous
+    blocks (every rank names M devices, M dividing D/P), as the JAX mesh
+    over several hosts spreads each host's shards over its chips."""
     return ShardGroup(1 if n_devices is None else n_devices, device,
                       processes=distributed, devices=devices)
 
@@ -384,8 +451,9 @@ def make_hierarchical_mesh(n_slices: int,
                            distributed: bool = False,
                            devices=None) -> ShardGroup:
     """``n_slices`` x ``chips_per_slice`` (one if None) shards, routed flat;
-    with ``devices`` or ``distributed``, spread over those devices or the
-    default process group's ranks as :func:`make_mesh` spreads them (the
+    with ``devices``, ``distributed`` or both, spread over those devices,
+    the default process group's ranks or each rank's devices as
+    :func:`make_mesh` spreads them (the
     JAX package builds its hierarchical mesh from ``jax.devices()``, which
     span the processes). The JAX package routes such a mesh in two stages,
     slices first over DCN and then within a slice over ICI, to move

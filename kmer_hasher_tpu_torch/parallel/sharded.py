@@ -113,7 +113,9 @@ class ShardedCountStore:
     own device first, the JAX store's ``psum``).
 
     Over a group that spans processes each rank holds only its own shards
-    (``shards[i]`` is shard ``mesh.local_shards[i]``; ``n_shards`` stays D),
+    (``shards[i]`` is shard ``mesh.local_shards[i]``, on
+    ``mesh.device_of`` of it, spread over the rank's own devices where the
+    group names several; ``n_shards`` stays D),
     and every add routes through the group's all-to-all, also with no rows,
     so every rank must make the same adds. The reads are collectives that
     every rank makes and that give every rank the one-process store's
@@ -170,8 +172,8 @@ class ShardedCountStore:
         own (still sorted and unique). ``n_obs`` observations of ``source``
         go into ``total_added``. Over processes an empty run is routed too:
         every rank's add is one exchange. Over several devices the run
-        stays where it is given and each bucket is copied to its owner's
-        device."""
+        stays where it is given, one source, and each bucket is copied to
+        its owner's device."""
         if not 0 <= source < self.counts_n:
             raise ValueError("source out of range")
         if cnt.shape != (keys.shape[0], self.counts_n):
@@ -226,13 +228,16 @@ class ShardedCountStore:
         store's ``with_q`` selected a traced branch; here rows without
         qualities emit nothing from the filter, so there is none.)
 
-        The rows are dealt to the group's M devices in contiguous blocks
-        (over several devices, padded with empty rows to a multiple of D
-        first: the JAX store's rows a chip); each device runs
-        ``_fused_rp_batch`` on its own block, so B2 launches on every card,
-        and the M runs go to one exchange. Over several devices each shard
-        thus takes M runs a batch where a group on one device takes one. With ``backlog`` (a list) hybrid's flagged reads are
-        appended to it, one entry a block, for the caller's sweep
+        The rows are dealt to this process's M devices in contiguous
+        blocks (over several devices, padded with empty rows to a multiple
+        of its D/P shards first: the JAX store's rows a chip; the lockstep
+        route's rank block needs no more padding, so the blocks nest, see
+        ``counting._lockstep_rows``); each device runs ``_fused_rp_batch``
+        on its own block, so B2 launches on every card, and the M runs go
+        to one exchange. Over several devices each shard thus takes M runs
+        a batch (M from every rank over processes) where a group on one
+        device takes one. With ``backlog`` (a list) hybrid's flagged reads
+        are appended to it, one entry a block, for the caller's sweep
         (``counting.count_batches``) instead of re-counted here."""
         from .. import counting
 
@@ -242,8 +247,8 @@ class ShardedCountStore:
         devices = self.mesh.devices
         runs, swept = [], []
         for b, dev in zip(counting._row_blocks(
-                (seq, qual, lengths, has_qual), self.n_shards, len(devices)),
-                devices):
+                (seq, qual, lengths, has_qual), len(self.mesh.local_shards),
+                len(devices)), devices):
             b = tuple(to_device(t, dev) for t in b)
             run_keys, run_cnt, n_obs, flags, n_flag = \
                 counting._fused_rp_batch(
@@ -486,7 +491,10 @@ class ShardedKmerIndex:
     order, the pair stream chunk by chunk from the rank owning its shard,
     lookups summed, and every query stream round by round, each round's
     chunks gathered to every rank, so that every rank merges the same
-    streams. The number of rounds follows from allgathered totals, so the
+    streams. Where the group also spreads each rank's shards over its
+    devices, each device encodes its own rows and every device of every
+    rank is one source of the exchange. The number of rounds follows from
+    allgathered totals, so the
     ranks stay in step as long as every rank makes the same calls in the
     same order, which it must. ``timings`` holds the routes and their
     seconds, the exchange's seconds and the bytes it sent to other ranks,

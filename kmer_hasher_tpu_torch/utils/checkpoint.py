@@ -28,8 +28,9 @@ Over a shard group that spans processes, as in the JAX package, saving is
 collective: every rank folds its own shards, rank 0 gathers the D tables
 and writes the file, and a barrier follows, so the file is complete when
 any rank returns. Loading onto such a group reads the file on every rank
-(a directory they share) and installs each rank's own shards; rank 0 holds
-the file's ``total_added``.
+(a directory they share) and installs each rank's own shards, each on
+its own device where the group spreads a rank's shards over several;
+rank 0 holds the file's ``total_added``.
 """
 from __future__ import annotations
 

@@ -193,7 +193,7 @@ def test_sources_name_no_jax():
             "cuda_probes_dma.py", "mesh.py", "sharded.py",
             "distributed.py", "bench.py", "e2e_device_bench.py",
             "hybrid_probe.py", "sharded_hybrid_bench.py", "spill_regime.py",
-            "large_pairs.py", "counting_stress.py"} <= names
+            "large_pairs.py", "counting_stress.py", "demo.py"} <= names
     for path in sources + [REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             s = line.strip()
@@ -294,6 +294,8 @@ CALLS = {
     "examples.counting_stress.main": lambda api, ck, p: entry(
         "examples.counting_stress").main(["--reads", "4", "--keep",
                                           p["fq"]]),
+    "examples.demo.main": lambda api, ck, p: entry("examples.demo").main(
+        ["--data", str(p["index"].parent)]),
     "load_index": lambda api, ck, p: ck.load_index(p["index"]),
     "load_count_store": lambda api, ck, p: ck.load_count_store(p["store"]),
     "index_from_numpy": lambda api, ck, p: ck.index_from_numpy(

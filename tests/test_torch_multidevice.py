@@ -466,7 +466,8 @@ def test_errors(monkeypatch):
         make_mesh(D, device=CPU, devices=[CPU] * 3)
     with pytest.raises(ValueError, match="evenly"):
         make_mesh(D, device=CPU, devices=[])
-    with pytest.raises(ValueError, match="devices"):
+    # both spreads combine now; over processes they need the process group
+    with pytest.raises(RuntimeError, match="init_distributed"):
         make_mesh(D, device=CPU, distributed=True, devices=[CPU] * 2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
