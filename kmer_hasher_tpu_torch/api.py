@@ -36,6 +36,7 @@ from .index import CountStore, KmerIndex
 from .index.query import (iter_kmer_pairs_chunks, iter_seq_kmer_pos_chunks,
                           kmer_pairs, seq_kmer_pos)
 from .parallel.distributed import host_read_slice, init_distributed
+from .utils.trace import span
 
 __all__ = [
     "KmerIndex",
@@ -85,7 +86,8 @@ def kmer_spectrum(store: CountStore, max_count: int) -> np.ndarray:
     """``kmer.spec.kt`` / ``kmer.spec.sh`` (src/kmer_hash.c:975-1008):
     counts histogram clamped into the last bin; kmer_tree-mode stores
     include the zero cells of allocated prefix blocks."""
-    return store.spectrum(max_count)
+    with span("kmh.store.spectrum"):
+        return store.spectrum(max_count)
 
 
 def kmer_spectrum_n(store: CountStore, max_count: int, comb, comb_inner,

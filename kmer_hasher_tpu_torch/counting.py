@@ -20,12 +20,13 @@ parser where it builds (``io/native.py``), else the pure-Python reader, one
 batch ahead in a producer thread; ``_device_batches`` stages the padded
 byte planes through pinned buffers. Which reader ran, and what the reading
 cost, is in ``store.timings`` (``reader``, ``parse_s``, ``wait_s``,
-``copy_s``, ``h2d_bytes``, ``file_reads``). ``count_kmers_fq_sh_rp(mesh=)``
-counts into a ``parallel.ShardedCountStore`` on a shard group's shards
+``copy_s``, ``h2d_bytes``, ``file_reads``, ``flagged_reads``).
+``count_kmers_fq_sh_rp(mesh=)`` counts into a
+``parallel.ShardedCountStore`` on a shard group's shards
 (:func:`_count_rp_sharded`), through the same loop; over a group spread
 over several devices of one process each batch's rows are dealt to the
-devices (``ShardedCountStore.add_reads``); over a group
-that spans processes, every rank parses its own part of the input (a share
+devices (``ShardedCountStore.add_reads``); over a group that spans
+processes, every rank parses its own part of the input (a share
 of a file list, a byte range of one plain FASTQ) or, where neither can be
 cut, its own rows of every batch, and the store's timings are the rank's
 own.
@@ -52,6 +53,7 @@ from .ops import cuda_scan
 from .ops import encode as enc
 from .ops import scan_iter as si
 from .qll import Q_TO_LL
+from .utils.trace import span
 
 MAX_K = 32
 BATCH_ROWS = 1 << 15  # reads per batch of the file entries
@@ -132,7 +134,8 @@ def _prefetch(it: Iterator, depth: int, info: dict) -> Iterator:
     try:
         while True:
             t0 = time.perf_counter()
-            item = q.get()
+            with span("kmh.io.wait"):
+                item = q.get()
             info["wait_s"] = info.get("wait_s", 0.0) + (
                 time.perf_counter() - t0)
             if item is done:
@@ -232,8 +235,10 @@ def _device_batches(batches: Iterable, dev: torch.device,
 
     if dev.type != "cuda":
         for b in batches:
-            yield (tuple(torch.as_tensor(a).to(dev) for a in b[:4]),
-                   *host_view(b))
+            with span("kmh.count.stage"):
+                out = (tuple(torch.as_tensor(a).to(dev) for a in b[:4]),
+                       *host_view(b))
+            yield out
         return
     copy = torch.cuda.Stream(dev)
     slots = [{"bufs": {}, "done": None} for _ in range(2)]
@@ -251,27 +256,29 @@ def _device_batches(batches: Iterable, dev: torch.device,
 
     def ship(b):
         nonlocal turn
-        host = host_view(b)
-        b = b[:4]
-        if all(isinstance(a, torch.Tensor) and a.is_cuda for a in b):
-            # staged on a card already ("cuda" names the current one)
-            return tuple(a.to(dev) for a in b), None, host
-        t0 = time.perf_counter()
-        slot = slots[turn]
-        turn ^= 1
-        if slot["done"] is not None:
-            slot["done"].synchronize()  # its last copy has left the buffers
-        with torch.cuda.stream(copy):
-            out = tuple(staged(slot, i, torch.as_tensor(a))
-                        .to(dev, non_blocking=True) for i, a in enumerate(b))
-            slot["done"] = torch.cuda.Event()
-            slot["done"].record(copy)
-        if stats is not None:
-            stats["h2d_bytes"] = stats.get("h2d_bytes", 0) + sum(
-                t.numel() * t.element_size() for t in out)
-            stats["copy_s"] = stats.get("copy_s", 0.0) + (
-                time.perf_counter() - t0)
-        return out, slot["done"], host
+        with span("kmh.count.stage"):
+            host = host_view(b)
+            b = b[:4]
+            if all(isinstance(a, torch.Tensor) and a.is_cuda for a in b):
+                # staged on a card already ("cuda" names the current one)
+                return tuple(a.to(dev) for a in b), None, host
+            t0 = time.perf_counter()
+            slot = slots[turn]
+            turn ^= 1
+            if slot["done"] is not None:
+                slot["done"].synchronize()  # its last copy has left them
+            with torch.cuda.stream(copy):
+                out = tuple(staged(slot, i, torch.as_tensor(a))
+                            .to(dev, non_blocking=True)
+                            for i, a in enumerate(b))
+                slot["done"] = torch.cuda.Event()
+                slot["done"].record(copy)
+            if stats is not None:
+                stats["h2d_bytes"] = stats.get("h2d_bytes", 0) + sum(
+                    t.numel() * t.element_size() for t in out)
+                stats["copy_s"] = stats.get("copy_s", 0.0) + (
+                    time.perf_counter() - t0)
+            return out, slot["done"], host
 
     it = iter(batches)
     nxt = next(it, None)
@@ -505,53 +512,60 @@ def count_batches(store: CountStore, batches: Iterable, k: int,
     is an empty add: over processes, a rank whose input is drained still
     takes its turn in every exchange, and every rank sweeps after the same
     batches."""
-    fsm = _fsm_of(exact_ll)
-    min_ll_f = float(Q_TO_LL[33 + int(min_q)])
-    min_q_char = 33 + int(min_q)
-    backlog: list = []
-    since_sweep = flagged = 0
-    sharded = getattr(store, "mesh", None) is not None
+    with span("kmh.count"):
+        fsm = _fsm_of(exact_ll)
+        min_ll_f = float(Q_TO_LL[33 + int(min_q)])
+        min_q_char = 33 + int(min_q)
+        backlog: list = []
+        since_sweep = flagged = 0
+        sharded = getattr(store, "mesh", None) is not None
 
-    def sweep():
-        nonlocal since_sweep, flagged
-        since_sweep = 0
-        if fsm == "hybrid":
-            flagged += _sweep_backlog(store, backlog, k, source, min_ll_f)
+        def sweep():
+            nonlocal since_sweep, flagged
+            since_sweep = 0
+            if fsm == "hybrid":
+                with span("kmh.count.sweep"):
+                    flagged += _sweep_backlog(store, backlog, k, source,
+                                              min_ll_f)
 
-    for (seq, qual, lengths, has_qual), len_h, hq_h, n_recs in (
-            _device_batches(batches, store.device, stats)):
-        if len_h.shape[0]:
-            with_noq = bool((~hq_h & (len_h > k)).any())
-            n_win = win_bucket(len_h.max(initial=1), k)
-            if sharded:  # the store deals the rows to its devices
-                store.add_reads(seq, qual, lengths, has_qual, min_ll_f, fsm,
-                                source, with_noq, min_q_char, n_win,
-                                backlog=backlog)
-            else:
-                run_keys, run_cnt, n_obs, flags, n_flag = _fused_rp_batch(
-                    seq, qual, lengths, has_qual, k, store.counts_n, source,
-                    min_ll_f, fsm, with_noq, min_q_char=min_q_char,
-                    n_win=n_win)
-                store.add_run(run_keys, run_cnt, n_obs, source=source)
-                if fsm == "hybrid":
-                    backlog.append((seq, qual, lengths, flags, n_win,
-                                    n_flag))
-        else:
-            _add_empty(store, source)
-        since_sweep += 1
-        if since_sweep >= _SWEEP_EVERY:
-            sweep()
-        if on_batch is not None:
-            on_batch(n_recs, sweep)
-        if meter:
-            meter.update(n_recs,
-                         distinct_kmers=lambda: store.peek_n_unique())
-    sweep()
-    if stats is not None:
-        if _spans_processes(store):
-            flagged = int(store.mesh.all_sum([flagged])[0])
-        stats["flagged_reads"] = stats.get("flagged_reads", 0) + flagged
-    return store.flush()
+        for (seq, qual, lengths, has_qual), len_h, hq_h, n_recs in (
+                _device_batches(batches, store.device, stats)):
+            with span("kmh.count.batch"):
+                if len_h.shape[0]:
+                    with_noq = bool((~hq_h & (len_h > k)).any())
+                    n_win = win_bucket(len_h.max(initial=1), k)
+                    if sharded:  # the store deals the rows to its devices
+                        store.add_reads(seq, qual, lengths, has_qual,
+                                        min_ll_f, fsm, source, with_noq,
+                                        min_q_char, n_win, backlog=backlog)
+                    else:
+                        run_keys, run_cnt, n_obs, flags, n_flag = (
+                            _fused_rp_batch(
+                                seq, qual, lengths, has_qual, k,
+                                store.counts_n, source, min_ll_f, fsm,
+                                with_noq, min_q_char=min_q_char,
+                                n_win=n_win))
+                        store.add_run(run_keys, run_cnt, n_obs,
+                                      source=source)
+                        if fsm == "hybrid":
+                            backlog.append((seq, qual, lengths, flags,
+                                            n_win, n_flag))
+                else:
+                    _add_empty(store, source)
+            since_sweep += 1
+            if since_sweep >= _SWEEP_EVERY:
+                sweep()
+            if on_batch is not None:
+                on_batch(n_recs, sweep)
+            if meter:
+                meter.update(n_recs,
+                             distinct_kmers=lambda: store.peek_n_unique())
+        sweep()
+        if stats is not None:
+            if _spans_processes(store):
+                flagged = int(store.mesh.all_sum([flagged])[0])
+            stats["flagged_reads"] = stats.get("flagged_reads", 0) + flagged
+        return store.flush()
 
 
 def _fused_threshold_batch(seq: torch.Tensor, qual: torch.Tensor,
@@ -616,11 +630,15 @@ def _record_reading(store: CountStore, info: dict, stats: dict) -> None:
     """What reading a file cost, into ``store.timings``: the reader's name
     (of the last file), and summed over files the producer's parse seconds,
     the consumer's seconds waiting for it, the staging seconds, the bytes
-    sent to the device and the reads."""
+    sent to the device, the reads and the reads the hybrid filter flagged
+    and re-counted (``count_batches``' ``flagged_reads``: over processes,
+    every rank's; 0 where no read was flagged or the entry does not
+    flag)."""
     tm = store.timings
     tm["reader"] = info["reader"]
     for key, src in (("parse_s", info), ("wait_s", info), ("copy_s", stats),
-                     ("h2d_bytes", stats), ("file_reads", stats)):
+                     ("h2d_bytes", stats), ("file_reads", stats),
+                     ("flagged_reads", stats)):
         tm[key] = tm.get(key, 0) + src.get(key, 0)
 
 

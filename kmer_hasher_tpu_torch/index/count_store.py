@@ -71,6 +71,7 @@ import torch
 
 from ..ops import cuda_merge
 from ..ops import encode as enc
+from ..utils.trace import span
 from .position_index import resolve_device
 
 Run = Tuple[torch.Tensor, torch.Tensor]  # (sortable keys [n], counts [n, C])
@@ -455,7 +456,8 @@ class CountStore:
 
     def _merge_two(self, a: Run, b: Run) -> Run:
         t0 = time.perf_counter()
-        out = merge_runs((a, b))
+        with span("kmh.store.tier_merge"):
+            out = merge_runs((a, b))
         self.timings["tier_merges"] += 1
         self.timings["tier_merge_rows"] += int(a[0].shape[0] + b[0].shape[0])
         self.timings["tier_merge_s"] += time.perf_counter() - t0
@@ -477,25 +479,26 @@ class CountStore:
     def _spill_run(self, run: Run) -> None:
         """Move one run off the device: to host memory, or to an ``.npz``
         file under ``spill_dir`` (removed when it is read back)."""
-        t0 = time.perf_counter()
-        keys, cnt = (self._staging.to_host(t) for t in run)
-        if self.spill_dir is not None:
-            os.makedirs(self.spill_dir, exist_ok=True)
-            # the process id keeps two processes sharing the directory
-            # apart: their stores may have the same id()
-            path = os.path.join(
-                self.spill_dir,
-                f"kmh_spill_{os.getpid()}_{id(self):x}_{self._spill_seq}.npz")
-            np.savez(path, keys=keys.numpy(), cnt=cnt.numpy())
-            self._spilled.append(("file", path))
-        else:
-            self._spilled.append(("mem", (keys, cnt)))
-        n = int(keys.shape[0])
-        self._spilled_rows += n
-        self._spill_seq += 1
-        self.timings["spills"] += 1
-        self.timings["spilled_rows"] += n
-        self.timings["spill_s"] += time.perf_counter() - t0
+        with span("kmh.store.spill"):
+            t0 = time.perf_counter()
+            keys, cnt = (self._staging.to_host(t) for t in run)
+            if self.spill_dir is not None:
+                os.makedirs(self.spill_dir, exist_ok=True)
+                # the process id keeps two processes sharing the directory
+                # apart: their stores may have the same id()
+                path = os.path.join(self.spill_dir, (
+                    f"kmh_spill_{os.getpid()}_{id(self):x}_"
+                    f"{self._spill_seq}.npz"))
+                np.savez(path, keys=keys.numpy(), cnt=cnt.numpy())
+                self._spilled.append(("file", path))
+            else:
+                self._spilled.append(("mem", (keys, cnt)))
+            n = int(keys.shape[0])
+            self._spilled_rows += n
+            self._spill_seq += 1
+            self.timings["spills"] += 1
+            self.timings["spilled_rows"] += n
+            self.timings["spill_s"] += time.perf_counter() - t0
 
     def _spill_if_needed(self) -> None:
         """After every tier compaction: while the resident runs exceed
@@ -588,33 +591,37 @@ class CountStore:
     def flush(self) -> "CountStore":
         """Fold pending batches, all runs and all spilled runs into the
         sorted base table."""
-        self._build_runs()
-        if not self._runs and not self._spilled:
+        with span("kmh.store.fold"):
+            self._build_runs()
+            if not self._runs and not self._spilled:
+                return self
+            t0 = time.perf_counter()
+            runs = self._runs + ([(self.keys, self.cnt)] if self.n_rows
+                                 else [])
+            self._runs = []
+            if self._spilled and self._ranged_fold_needed(
+                    sum(int(r[0].shape[0]) for r in runs)):
+                # the rejoin goes out of core anyway: do not merge the
+                # resident runs into one accumulator first (that merge is the
+                # one the budget cannot hold) — every run goes to the host as
+                # it is
+                self.keys, self.cnt = self._empty_table()  # frees the base
+                while runs:
+                    self._spill_run(runs.pop())
+                self.keys, self.cnt = self._fold_spilled_ranged()
+            else:
+                # no resident run: the first spilled one seeds it
+                acc = None
+                if len(runs) == 2:
+                    acc = self._merge_in_fold(*runs)
+                elif runs:
+                    acc = runs[0] if len(runs) == 1 else merge_runs(runs)
+                del runs
+                self.keys, self.cnt = self._fold_spilled(acc)
+            self.timings["folds"] += 1
+            self.timings["fold_s"] += time.perf_counter() - t0
+            self._check_budget()
             return self
-        t0 = time.perf_counter()
-        runs = self._runs + ([(self.keys, self.cnt)] if self.n_rows else [])
-        self._runs = []
-        if self._spilled and self._ranged_fold_needed(
-                sum(int(r[0].shape[0]) for r in runs)):
-            # the rejoin goes out of core anyway: do not merge the resident
-            # runs into one accumulator first (that merge is the one the
-            # budget cannot hold) — every run goes to the host as it is
-            self.keys, self.cnt = self._empty_table()  # frees the base
-            while runs:
-                self._spill_run(runs.pop())
-            self.keys, self.cnt = self._fold_spilled_ranged()
-        else:
-            acc = None  # no resident run: the first spilled one seeds it
-            if len(runs) == 2:
-                acc = self._merge_in_fold(*runs)
-            elif runs:
-                acc = runs[0] if len(runs) == 1 else merge_runs(runs)
-            del runs
-            self.keys, self.cnt = self._fold_spilled(acc)
-        self.timings["folds"] += 1
-        self.timings["fold_s"] += time.perf_counter() - t0
-        self._check_budget()
-        return self
 
     def _check_budget(self) -> None:
         """Soft memory budget like kmer_tree's max_size (kmer_tree.c:57-67):

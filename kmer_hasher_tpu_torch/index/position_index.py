@@ -20,6 +20,7 @@ import torch
 
 from ..ops import encode as enc
 from ..ops import sort as srt
+from ..utils.trace import span
 
 MAX_K = 32
 _NUC = np.frombuffer(b"ACTG", dtype=np.uint8)  # decode table, kmer_hash.c:21
@@ -54,15 +55,19 @@ def build_index_arrays(ascii_u8: torch.Tensor, k: int, true_len,
     axis; the live prefix has length n_valid. ``s_key`` holds sortable
     keys (``ops.encode.sortable_key``), ``s_pos`` 1-based window starts.
     """
-    key, valid = enc.encode_stream(
-        ascii_u8, k, true_len, drop_trailing_exact_k=drop_trailing_exact_k)
-    s_key, s_pos = srt.sort_windows(key, valid, k)
-    n_valid = valid.sum(dim=-1, dtype=torch.int32)
-    L = key.shape[-1]
-    live = (torch.arange(L, dtype=torch.int32, device=key.device)
-            < n_valid.unsqueeze(-1))
-    starts = srt.segment_starts(s_key, live)
-    return s_key, s_pos, n_valid, starts, srt.segment_ids(starts)
+    with span("kmh.index.encode"):
+        key, valid = enc.encode_stream(
+            ascii_u8, k, true_len,
+            drop_trailing_exact_k=drop_trailing_exact_k)
+    with span("kmh.index.sort"):
+        s_key, s_pos = srt.sort_windows(key, valid, k)
+    with span("kmh.index.groups"):
+        n_valid = valid.sum(dim=-1, dtype=torch.int32)
+        L = key.shape[-1]
+        live = (torch.arange(L, dtype=torch.int32, device=key.device)
+                < n_valid.unsqueeze(-1))
+        starts = srt.segment_starts(s_key, live)
+        return s_key, s_pos, n_valid, starts, srt.segment_ids(starts)
 
 
 def _group_stats(s_pos: torch.Tensor, n_valid: int, starts: torch.Tensor,
@@ -106,10 +111,11 @@ def _pair_chunk(s_pos, i_col, m, cum_m, n_valid: int, start: int, n: int
     the pairs (pos[j], pos[j+1+t]) for t < c-1-r, which concatenated over
     ascending j is the reference's nested j<k loop (src/kmer_hash.c:1113).
     """
-    g = start + torch.arange(n, dtype=torch.int64, device=s_pos.device)
-    j = srt.expand_rank_i64(cum_m, g, n_valid)
-    t = g - (cum_m[j] - m[j])
-    return torch.stack([i_col[j], s_pos[j], s_pos[j + 1 + t]], dim=1)
+    with span("kmh.index.pairs"):
+        g = start + torch.arange(n, dtype=torch.int64, device=s_pos.device)
+        j = srt.expand_rank_i64(cum_m, g, n_valid)
+        t = g - (cum_m[j] - m[j])
+        return torch.stack([i_col[j], s_pos[j], s_pos[j + 1 + t]], dim=1)
 
 
 def _unique_compact(s_key: torch.Tensor, starts: torch.Tensor
@@ -146,12 +152,15 @@ class KmerIndex:
         dev = resolve_device(device)
         seq_len = int(seq.shape[0])
         L_pad = 1 << max(6, (seq_len - 1).bit_length())
-        # pad on the device: only the sequence itself crosses to it
-        x = torch.full((L_pad,), ord("N"), dtype=torch.uint8, device=dev)
-        x[:seq_len] = torch.from_numpy(seq)
-        s_key, s_pos, n_valid, starts, seg_ids = build_index_arrays(
-            x, k, seq_len)
-        self._init(k, seq_len, s_key, s_pos, int(n_valid), starts, seg_ids)
+        # from the upload through the group statistics: the whole build
+        with span("kmh.index.build"):
+            # pad on the device: only the sequence itself crosses to it
+            x = torch.full((L_pad,), ord("N"), dtype=torch.uint8, device=dev)
+            x[:seq_len] = torch.from_numpy(seq)
+            s_key, s_pos, n_valid, starts, seg_ids = build_index_arrays(
+                x, k, seq_len)
+            self._init(k, seq_len, s_key, s_pos, int(n_valid), starts,
+                       seg_ids)
 
     def _init(self, k, seq_len, s_key, s_pos, n_valid, starts, seg_ids):
         self.k = int(k)
@@ -258,16 +267,17 @@ class KmerIndex:
                ) -> Dict:
         """The ``kmer.pos`` entry (opt_flag bits 1=kmer 2=pos 4=pair.pos
         8=count, src/kmer_hash.c:17)."""
-        out = {"kmer": None, "pos": None, "pair.pos": None, "count": None}
-        if opt_flag & 1:
-            out["kmer"] = self.kmer_strings()
-        if opt_flag & 2:
-            out["pos"] = self.pos_table()
-        if opt_flag & 4:
-            out["pair.pos"] = self.pair_table(max_pairs)
-        if opt_flag & 8:
-            out["count"] = self.counts()
-        return out
+        with span("kmh.index.tables"):
+            out = {"kmer": None, "pos": None, "pair.pos": None, "count": None}
+            if opt_flag & 1:
+                out["kmer"] = self.kmer_strings()
+            if opt_flag & 2:
+                out["pos"] = self.pos_table()
+            if opt_flag & 4:
+                out["pair.pos"] = self.pair_table(max_pairs)
+            if opt_flag & 8:
+                out["count"] = self.counts()
+            return out
 
     # -- queries ------------------------------------------------------------
     def lookup_range(self, q_key: torch.Tensor

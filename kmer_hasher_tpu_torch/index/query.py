@@ -25,6 +25,7 @@ import torch
 
 from ..ops import encode as enc
 from ..ops import sort as srt
+from ..utils.trace import span
 from .position_index import KmerIndex, as_sequence
 
 
@@ -42,11 +43,13 @@ def _query_ranges(s_key: torch.Tensor, n_valid: int, query_u8: torch.Tensor,
 def _hit_chunk(s_pos, lb, c, cum_c, k: int, start: int, n: int
                ) -> torch.Tensor:
     """Hit rows [n, 2] = (i, j) for global hit indices [start, start+n)."""
-    g = start + torch.arange(n, dtype=torch.int64, device=s_pos.device)
-    w = srt.expand_rank_i64(cum_c, g, cum_c.shape[0])
-    t = g - (cum_c[w] - c[w])
-    i_col = (w + k).to(torch.int32)  # 1-based query position of the last base
-    return torch.stack([i_col, s_pos[lb[w] + t]], dim=1)
+    with span("kmh.query.hits"):
+        g = start + torch.arange(n, dtype=torch.int64, device=s_pos.device)
+        w = srt.expand_rank_i64(cum_c, g, cum_c.shape[0])
+        t = g - (cum_c[w] - c[w])
+        # 1-based query position of the last base
+        i_col = (w + k).to(torch.int32)
+        return torch.stack([i_col, s_pos[lb[w] + t]], dim=1)
 
 
 def _drain(total: int, capacity: int, chunk) -> Iterator[torch.Tensor]:
@@ -65,10 +68,12 @@ def iter_seq_kmer_pos_chunks(index: KmerIndex, query, k: int,
             "the sequence should be longer than k and k should not be longer"
             " than 31")
     true_len = int(query.shape[0])
-    lb, c, cum_c = _query_ranges(
-        index.s_key, index.n_valid, torch.from_numpy(query).to(index.device),
-        k, true_len)
-    total = int(cum_c[-1])
+    with span("kmh.query.ranges"):
+        lb, c, cum_c = _query_ranges(
+            index.s_key, index.n_valid,
+            torch.from_numpy(query).to(index.device), k, true_len)
+    with span("kmh.query.total"):
+        total = int(cum_c[-1])
     if total == 0:
         yield torch.zeros((0, 2), dtype=torch.int32, device=index.device)
         return
@@ -78,7 +83,9 @@ def iter_seq_kmer_pos_chunks(index: KmerIndex, query, k: int,
 
 def seq_kmer_pos(index: KmerIndex, query, k: int) -> torch.Tensor:
     """R entry ``seq.kmer.pos``: the full (i, j) matrix."""
-    return torch.cat(list(iter_seq_kmer_pos_chunks(index, query, k)), dim=0)
+    with span("kmh.query"):
+        return torch.cat(list(iter_seq_kmer_pos_chunks(index, query, k)),
+                         dim=0)
 
 
 def _pair_ranges(a: KmerIndex, b: KmerIndex):
