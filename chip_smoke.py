@@ -52,7 +52,10 @@ is nonzero:
              computed) and P10 (a per-lane lookup table) at the TPU probes'
              shapes, at 2^26 and on edge inputs, over the whole output; P1
              and P10 also one below, at and above their blocks' tiles and
-             P10's rounds of tasks, and off the 16-byte boundary;
+             P10's rounds of tasks, and off the 16-byte boundary; Q1 and
+             Q2 (the query's bounds and hit expansion) at the query cell's
+             lengths, 10 kb, 100 kb and 1 Mb at k=21, every chunk of a drain
+             of 4,096 rows, and timed beside their bound;
 4. main (index) — make_kmer_hash(k=32) of a 40,000,000-base sequence,
              kmer_pos(2|8), the full pair drain, then a k=21 index and
              seq_kmer_pos with a 1,000,000-base query, with checks;
@@ -255,6 +258,8 @@ SEED = 20261016
 SEQ_LEN = 40_000_000  # a ~40 Mbp chromosome (BASELINE.json config 4)
 REPEAT_AT, UNIT, COPIES = 1_000_000, 5_000, 40
 QUERY_AT, QUERY_LEN = 500_000, 1_000_000
+# Q1 and Q2 at the query cell's lengths: its shortest, median and longest
+QUERY_LENS, QUERY_SUB_RATE = (10_000, 100_000, 1_000_000), 0.01
 PREFIX = 1 << 22
 KS_KERNEL = (1, 4, 16, 17, 21, 31, 32)
 KS_EDGE = (1, 2, 15, 16, 17, 21, 31, 32)  # B1 on the edges of its tiling
@@ -595,6 +600,135 @@ def phase_kernels(rng):
     return worst
 
 
+def q2_sectors(lb, c, cum, m: int) -> int:
+    """32-byte sectors of s_pos that the first ``m`` hit rows of (lb, c)
+    read."""
+    w = torch.repeat_interleave(torch.arange(c.shape[0], device=c.device),
+                                c)[:m]
+    g = torch.arange(m, device=c.device)
+    j = lb[w] + g - (cum - c)[w]
+    return int(torch.unique(j >> 3).numel())
+
+
+def q1_sectors(s_key, n_valid: int, key, lb, c) -> int:
+    """32-byte sectors of s_key that Q1's searches read: every probe of
+    each window's lower-bound search (the kernel's own halving, replayed
+    on the host) and the rows [lb, lb + c] that the gallop covers."""
+    sk = s_key[:n_valid].cpu().numpy()
+    q = (key ^ SIGN).cpu().numpy()
+    lo = np.zeros(q.shape[0], np.int64)
+    cnt = np.full(q.shape[0], n_valid, np.int64)
+    probes = []
+    while (cnt > 0).any():
+        act = cnt > 0
+        half = cnt >> 1
+        mid = lo + half
+        probes.append(mid[act] >> 2)
+        less = act & (sk[np.minimum(mid, n_valid - 1)] < q)
+        lo = np.where(less, mid + 1, lo)
+        cnt = np.where(act, np.where(less, cnt - half - 1, half), 0)
+    c_h, lb_h = c.cpu().numpy(), lb.cpu().numpy()
+    hit = c_h > 0
+    ends = np.minimum(lb_h[hit] + c_h[hit], n_valid - 1)
+    probes += [lb_h[hit] >> 2, ends >> 2]
+    return int(np.unique(np.concatenate(probes)).shape[0])
+
+
+def phase_kernels_query(card: str) -> dict:
+    """Q1 (the bounds) and Q2 (the hit expansion) of seq_kmer_pos against
+    their plain versions on the same card tensors, bitwise, at the query
+    cell's shapes: k=21 on SEQ_LEN bases with the 40-copy repeat, queries
+    of QUERY_LENS bases with 1% substitutions across the repeat's start
+    (the shortest with an N before its last window), every chunk of one
+    drain and of 4,096-row drains. Then each timed per query length:
+    events, device and host a call, the plain version, the library calls
+    (two torch.searchsorted for Q1, the owner searchsorted for Q2), beside
+    the bound: the bytes of the s_key or s_pos sectors read, the inputs and
+    the rows written, over HBM_BYTES_PER_S."""
+    from kmer_hasher_tpu_torch import api
+    from kmer_hasher_tpu_torch.index import query as tq
+    from kmer_hasher_tpu_torch.ops import cuda_encode as b1
+    from kmer_hasher_tpu_torch.ops import cuda_query as qk
+    from kmer_hasher_tpu_torch.ops import encode as enc
+
+    rng = np.random.default_rng(SEED + 11)
+    seq = make_sequence(rng, SEQ_LEN)
+    k = 21
+    idx = api.make_kmer_hash(seq, k, device="cuda")
+    live = idx.s_key[: idx.n_valid]
+    rows = {}
+    for n in QUERY_LENS:
+        at = REPEAT_AT - n // 2
+        q = seq[at: at + n].copy()
+        sub = (rng.random(n) < QUERY_SUB_RATE) & ((q | 0x20) != ord("n"))
+        q[sub] = rng.choice(np.frombuffer(b"ACGT", np.uint8),
+                            size=int(sub.sum()))
+        if n == QUERY_LENS[0]:
+            q[-k - 1] = ord("N")
+        x = torch.from_numpy(q).cuda()
+        key, valid = b1.encode(x, k, n)
+        drop = qk.trailing_drop(q, k, n)
+        lb, c = qk.ranges(key, valid, idx.s_key, idx.n_valid, drop)
+        lb0, c0, cum0 = tq._query_ranges(idx.s_key, idx.n_valid, x, k, n)
+        cum = torch.cumsum(c, dim=0)
+        total = int(cum[-1])
+        bad = [] if torch.equal(lb, lb0) and torch.equal(c, c0) else ["Q1"]
+        chunks = 0
+        for cap in (max(total, 1), 1 << 12):
+            for start in range(0, total, cap):
+                m = min(cap, total - start)
+                if not torch.equal(qk.hits(idx.s_pos, lb, c, cum, k, start, m),
+                                   tq._hit_chunk(idx.s_pos, lb0, c0, cum0, k,
+                                                 start, m)):
+                    bad.append(f"Q2 rows [{start}, {start + m})")
+                chunks += 1
+        torch.cuda.synchronize()
+        most = int(c.max())
+        if bad or most < 40 or (n == QUERY_LENS[0]) != (drop >= 0):
+            raise AssertionError(
+                f"Q1/Q2 disagree with their plain versions on a {n:,}-base "
+                f"query: {bad[:5]}; largest count {most}, dropped {drop}")
+        log(f"[kernels] Q1 == plain and Q2 == plain, bitwise, on a {n:,}-base "
+            f"k=21 query of {SEQ_LEN:,} indexed bases (1% substitutions, "
+            f"{total:,} hit rows, counts up to {most}"
+            f"{', the last window dropped' if drop >= 0 else ''}; "
+            f"{chunks} Q2 chunks of {total:,} and of 4,096 rows)")
+        # Q2 is timed on 2^20 rows at most: one chunk of a streamed drain
+        m = min(total, 1 << 20)
+        sk = enc.sortable_key(key)
+        g = torch.arange(m, device=x.device)
+        ranges = (lambda: qk.ranges(key, valid, idx.s_key, idx.n_valid,
+                                    drop))
+        hits = (lambda: qk.hits(idx.s_pos, lb, c, cum, k, 0, m))
+        search2 = (lambda: (torch.searchsorted(live, sk),
+                            torch.searchsorted(live, sk, right=True)))
+        owner = (lambda: torch.searchsorted(cum, g, right=True))
+        spanned = int(torch.searchsorted(cum, m - 1, right=True)) + 1
+        q1_bytes = n * (8 + 1 + 16) + 32 * q1_sectors(
+            idx.s_key, idx.n_valid, key, lb, c)
+        q2_bytes = m * 8 + spanned * 16 + 32 * q2_sectors(lb, c, cum, m)
+        for name, fn, plain, lib, moved in (
+                ("Q1", ranges, lambda: qk.plain_ranges(
+                    key, valid, idx.s_key, idx.n_valid, drop), search2,
+                 q1_bytes),
+                ("Q2", hits, lambda: qk.plain_hits(
+                    idx.s_pos, lb, c, cum, k, 0, m), owner, q2_bytes)):
+            ms, plain_ms, lib_ms = cuda_ms(fn), cuda_ms(plain), cuda_ms(lib)
+            bound_ms, bound_by = bound(moved, 0)
+            row = rows.setdefault(name, {})[f"{n:,} bases"] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes": moved, "rows": m, "windows": n,
+                **device_split(fn, lib, iters=10)}
+            log(f"[times] {name} on a {n:,}-base query ({m:,} rows): "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"{lib_ms:.4f} ms (CUDA events, mean of 20); bound "
+                f"{bound_ms:.4f} ms ({moved / 1e6:.2f} MB){split_txt(row)} "
+                f"| {card}")
+        del key, valid, lb, c, lb0, c0, cum0, cum, g, sk
+    return rows
+
+
 def check_index(idx, seq: np.ndarray, k: int) -> None:
     """Invariants of a built index against the host oracle."""
     want = int(valid_windows_np(seq, k).sum())
@@ -612,6 +746,7 @@ def phase_main(seq: np.ndarray):
     """The user's path on the card: build, tables, pair drain, query."""
     from kmer_hasher_tpu_torch import api
     from kmer_hasher_tpu_torch.ops import cuda_encode as b1
+    from kmer_hasher_tpu_torch.ops import cuda_query as qk
 
     b1.encode.launches = 0
     torch.cuda.synchronize()
@@ -654,9 +789,14 @@ def phase_main(seq: np.ndarray):
     t0 = time.perf_counter()
     idx = api.make_kmer_hash(seq, k, device="cuda")
     query = seq[QUERY_AT: QUERY_AT + QUERY_LEN]
+    q1, q2 = qk.ranges.launches, qk.hits.launches
     rows = api.seq_kmer_pos(idx, query, k)
     torch.cuda.synchronize()
     t_k21 = time.perf_counter() - t0
+    q1, q2 = qk.ranges.launches - q1, qk.hits.launches - q2
+    if (q1, q2) != (1, 1):
+        raise AssertionError(f"seq_kmer_pos launched Q1 {q1} and Q2 {q2} "
+                             f"times for {rows.shape[0]:,} rows")
     check_index(idx, seq, k)
     own = rows[:, 1].long() == rows[:, 0].long() - k + 1 + QUERY_AT
     want = int(valid_windows_np(query, k).sum())
@@ -666,7 +806,7 @@ def phase_main(seq: np.ndarray):
             f"position, want {want}")
     log(f"[main] k=21 make_kmer_hash + seq_kmer_pos of a {QUERY_LEN:,}-base "
         f"query: {rows.shape[0]:,} rows, all {want:,} valid query windows "
-        f"hit their own position, {t_k21:.3f} s")
+        f"hit their own position, {t_k21:.3f} s; Q1 {q1} launch, Q2 {q2}")
     launches = b1.encode.launches
     if launches < 1:
         raise AssertionError("the main path never launched B1")
@@ -4831,6 +4971,7 @@ def main() -> None:
     phase_build()
     rng = np.random.default_rng(SEED)
     worst_b1 = phase_kernels(rng)
+    q_rows = phase_kernels_query(card)
     worst_b2 = phase_kernels_scan(rng)
     # B3's inputs draw from generators of their own, so the sequence and
     # the reads below stay what the seed has always made them
@@ -5082,7 +5223,7 @@ def main() -> None:
         ), start=11)], "turns": turns, "file_entry": cli_stats,
         "sharded_procs": procs_stats, "sharded_index_procs": ix_procs,
         "tools": tools, "multidevice": md_stats,
-        "procs_devices": pd_stats}))
+        "procs_devices": pd_stats, "query_kernels": q_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

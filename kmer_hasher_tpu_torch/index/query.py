@@ -16,13 +16,23 @@ a searchsorted over it map every output row to its source window. Chunk
 boundaries may differ from the JAX package's; the concatenated rows do
 not. Its compacted expansion plans (``ops/expand.py``) dodge slow TPU
 gathers and are not ported.
+
+On a CUDA index a ``seq_kmer_pos`` query is a short, fixed chain of
+launches: B1, Q1 (the bounds, ``ops/cuda_query.py``), one prefix sum, and
+one Q2 launch (the hit expansion; one a chunk when streamed); the only wait
+is the readback of the row total. :func:`_query_ranges` and
+:func:`_hit_chunk` are the CPU path, the sharded index's, and the plain
+versions Q1 and Q2 are held to.
 """
 from __future__ import annotations
 
+import sys
 from typing import Iterator
 
+import numpy as np
 import torch
 
+from ..ops import cuda_encode, cuda_query
 from ..ops import encode as enc
 from ..ops import sort as srt
 from ..utils.trace import span
@@ -52,6 +62,24 @@ def _hit_chunk(s_pos, lb, c, cum_c, k: int, start: int, n: int
         return torch.stack([i_col, s_pos[lb[w] + t]], dim=1)
 
 
+def _card_ranges(s_key, n_valid: int, query: np.ndarray,
+                 query_u8: torch.Tensor, k: int):
+    """:func:`_query_ranges` on the card: B1, Q1 and the prefix sum, the
+    trailing-exact-k window found from the host's bytes."""
+    n = query.shape[0]
+    key, valid = cuda_encode.encode(query_u8, k, n)
+    lb, c = cuda_query.ranges(key, valid, s_key, n_valid,
+                              cuda_query.trailing_drop(query, k, n))
+    return lb, c, torch.cumsum(c, dim=0)
+
+
+def _card_hit_chunk(s_pos, lb, c, cum_c, k: int, start: int, n: int
+                    ) -> torch.Tensor:
+    """:func:`_hit_chunk` on the card: one Q2 launch."""
+    with span("kmh.query.hits"):
+        return cuda_query.hits(s_pos, lb, c, cum_c, k, start, n)
+
+
 def _drain(total: int, capacity: int, chunk) -> Iterator[torch.Tensor]:
     capacity = srt.clamp_chunk_capacity(capacity, total)
     for start in range(0, total, capacity):
@@ -68,24 +96,34 @@ def iter_seq_kmer_pos_chunks(index: KmerIndex, query, k: int,
             "the sequence should be longer than k and k should not be longer"
             " than 31")
     true_len = int(query.shape[0])
+    on_card = index.device.type == "cuda"
     with span("kmh.query.ranges"):
-        lb, c, cum_c = _query_ranges(
-            index.s_key, index.n_valid,
-            torch.from_numpy(query).to(index.device), k, true_len)
+        query_u8 = torch.from_numpy(query).to(index.device)
+        if on_card:
+            lb, c, cum_c = _card_ranges(index.s_key, index.n_valid, query,
+                                        query_u8, k)
+        else:
+            lb, c, cum_c = _query_ranges(index.s_key, index.n_valid,
+                                         query_u8, k, true_len)
     with span("kmh.query.total"):
         total = int(cum_c[-1])
     if total == 0:
         yield torch.zeros((0, 2), dtype=torch.int32, device=index.device)
         return
-    yield from _drain(total, capacity, lambda start, n: _hit_chunk(
+    chunk = _card_hit_chunk if on_card else _hit_chunk
+    yield from _drain(total, capacity, lambda start, n: chunk(
         index.s_pos, lb, c, cum_c, k, start, n))
 
 
 def seq_kmer_pos(index: KmerIndex, query, k: int) -> torch.Tensor:
-    """R entry ``seq.kmer.pos``: the full (i, j) matrix."""
+    """R entry ``seq.kmer.pos``: the full (i, j) matrix; a lone chunk is
+    returned as it is. On a CUDA index the matrix is one chunk, one Q2
+    launch: chunks bound the plain path's temporaries, and Q2 makes none,
+    so more chunks would only add their concatenation's copy."""
+    capacity = sys.maxsize if index.device.type == "cuda" else 1 << 20
     with span("kmh.query"):
-        return torch.cat(list(iter_seq_kmer_pos_chunks(index, query, k)),
-                         dim=0)
+        chunks = list(iter_seq_kmer_pos_chunks(index, query, k, capacity))
+        return chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=0)
 
 
 def _pair_ranges(a: KmerIndex, b: KmerIndex):

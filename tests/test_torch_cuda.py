@@ -1,5 +1,5 @@
-"""The CUDA kernels B1, B2, B3 and P1–P10 against their plain PyTorch
-versions, and the paths through them against the CPU, on the card.
+"""The CUDA kernels B1, B2, B3, Q1, Q2 and P1–P10 against their plain
+PyTorch versions, and the paths through them against the CPU, on the card.
 
 Needs a CUDA device: marked ``cuda`` and skipped (visibly) without one.
 Imports neither JAX nor kmer_hasher_tpu, so it runs on a machine with
@@ -223,6 +223,205 @@ def test_index_on_card_matches_cpu(cuda, k):
         q = seq[900:1500]
         assert torch.equal(api.seq_kmer_pos(g, q, k).cpu(),
                            api.seq_kmer_pos(c, q, k))
+
+
+# the query path on the card (Q1, Q2): a seeded index of several Mbp with a
+# 40-copy tandem repeat, so that a window's count reaches 40
+QUERY_REF_LEN, QUERY_REPEAT_AT, QUERY_UNIT = 4_000_000, 1_000_000, 5000
+_query_indexes = {}
+
+
+def query_ref() -> np.ndarray:
+    if "seq" not in _query_indexes:
+        rng = np.random.default_rng(2200)
+        seq = random_seq(rng, QUERY_REF_LEN, n_runs=100)
+        unit = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=QUERY_UNIT)
+        seq[QUERY_REPEAT_AT: QUERY_REPEAT_AT + QUERY_UNIT * 40] = np.tile(
+            unit, 40)
+        _query_indexes["seq"] = seq
+    return _query_indexes["seq"]
+
+
+def query_index(dev, k, seq=None):
+    """(card index, CPU index) of ``seq`` (the 4 Mbp reference by
+    default), built once a module."""
+    key = (k, None if seq is None else seq.tobytes())
+    if key not in _query_indexes:
+        seq = query_ref() if seq is None else seq
+        _query_indexes[key] = (api.make_kmer_hash(seq, k, device=dev),
+                               api.make_kmer_hash(seq, k, device="cpu"))
+    return _query_indexes[key]
+
+
+def mutated(rng, seq, at, n, rate=0.01):
+    """seq[at: at + n] with substitutions at ``rate`` (never at an N)."""
+    q = seq[at: at + n].copy()
+    sub = (rng.random(n) < rate) & ((q | 0x20) != ord("n"))
+    q[sub] = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=int(sub.sum()))
+    return q
+
+
+def check_query_kernels(g, c, q, k, capacity=1 << 20):
+    """Q1 and Q2 on the card bitwise against ``_query_ranges`` and
+    ``_hit_chunk`` on the same card tensors, chunk by chunk; then the
+    chunks of the card's drain, with one Q1 launch and one Q2 launch a
+    chunk, and ``seq_kmer_pos`` on the card, one Q2 launch for all rows,
+    against the CPU path. Returns (largest count, rows)."""
+    from kmer_hasher_tpu_torch.index import query as tq
+    from kmer_hasher_tpu_torch.ops import cuda_query, sort
+
+    n = q.shape[0]
+    x = torch.from_numpy(q).to(g.device)
+    lb0, c0, cum0 = tq._query_ranges(g.s_key, g.n_valid, x, k, n)
+    lb, cnt, cum = tq._card_ranges(g.s_key, g.n_valid, q, x, k)
+    assert torch.equal(lb, lb0) and torch.equal(cnt, c0)
+    assert torch.equal(cum, cum0)
+    total = int(cum0[-1])
+    cap = sort.clamp_chunk_capacity(capacity, total)
+    for start in range(0, total, cap):
+        m = min(cap, total - start)
+        assert torch.equal(cuda_query.hits(g.s_pos, lb, cnt, cum, k, start, m),
+                           tq._hit_chunk(g.s_pos, lb0, c0, cum0, k, start, m))
+    r0, h0 = cuda_query.ranges.launches, cuda_query.hits.launches
+    chunks = list(api.iter_seq_kmer_pos_chunks(g, q, k, capacity))
+    assert cuda_query.ranges.launches == r0 + 1
+    assert cuda_query.hits.launches == h0 + -(-total // cap)
+    assert len(chunks) == max(1, -(-total // cap))
+    want = api.seq_kmer_pos(c, q, k)
+    assert torch.equal(torch.cat(chunks).cpu(), want)
+    h0 = cuda_query.hits.launches
+    assert torch.equal(api.seq_kmer_pos(g, q, k).cpu(), want)
+    assert cuda_query.hits.launches == h0 + (total > 0)  # one chunk
+    return int(c0.max()), total
+
+
+@pytest.mark.parametrize("capacity", [1 << 20, 1 << 12])
+@pytest.mark.parametrize("n", [10_000, 100_000, 1_000_000])
+def test_query_kernels_at_the_cell_lengths(cuda, n, capacity):
+    """k=21, 1% substitutions, each query across the repeat's start; with
+    chunks of 4,096 rows a window's rows are split across chunks."""
+    g, c = query_index(cuda, 21)
+    assert g.s_key.shape[0] > g.n_valid
+    rng = np.random.default_rng(n)
+    q = mutated(rng, query_ref(), QUERY_REPEAT_AT - n // 2, n)
+    most, total = check_query_kernels(g, c, q, 21, capacity)
+    assert most >= 40 and total > n // 2
+
+
+@pytest.mark.parametrize("k", [1, 15, 16, 17, 31])
+def test_query_kernels_across_k(cuda, k):
+    """N runs and an N just before the last window (the quirk drops it)."""
+    rng = np.random.default_rng(2300 + k)
+    if k == 1:  # four keys: a short reference and query keep rows few
+        seq = random_seq(rng, 2000, n_runs=3)
+        g, c = query_index(cuda, k, seq)
+        q = mutated(rng, seq, 500, 60)
+    else:
+        g, c = query_index(cuda, k)
+        q = mutated(rng, query_ref(), QUERY_REPEAT_AT - 20_000, 60_000)
+        q[100:130] = ord("N")
+    q[-k - 1] = ord("N")
+    most, total = check_query_kernels(g, c, q, k)
+    assert total > 0
+
+
+def edge_query(case, k):
+    ref = query_ref()
+    at = QUERY_REPEAT_AT + 7
+    if case == "N runs":
+        q = ref[at: at + 20_000].copy()
+        for a in (0, 999, 5000, 19_990):
+            q[a: a + 7] = ord("N")
+        return q
+    if case == "N before the last window":
+        q = ref[at: at + 5000].copy()
+        q[-k - 1] = ord("n")
+        return q
+    if case == "k+1 bases":
+        return ref[at: at + k + 1].copy()
+    if case == "k+1 bases after an N":
+        q = ref[at: at + k + 1].copy()
+        q[0] = ord("N")
+        return q
+    if case == "no hits":
+        return np.random.default_rng(2400).choice(
+            np.frombuffer(b"ACGT", np.uint8), size=5000)
+    return np.full(5000, ord("N"), dtype=np.uint8)  # all N
+
+
+@pytest.mark.parametrize("case", ["N runs", "N before the last window",
+                                  "k+1 bases", "k+1 bases after an N",
+                                  "no hits", "all N"])
+def test_query_kernels_on_edge_queries(cuda, case):
+    g, c = query_index(cuda, 21)
+    most, total = check_query_kernels(g, c, edge_query(case, 21), 21)
+    if case in ("no hits", "all N", "k+1 bases after an N"):
+        assert total == 0
+    else:
+        assert total > 0
+
+
+def test_query_lone_chunk_is_returned_as_is(cuda, monkeypatch):
+    from kmer_hasher_tpu_torch.index import query as tq
+    from kmer_hasher_tpu_torch.ops import cuda_query
+
+    g, c = query_index(cuda, 21)
+    q = mutated(np.random.default_rng(2500), query_ref(), 2_000_000, 50_000)
+    made, cats = [], []
+    chunk, cat = tq._card_hit_chunk, torch.cat
+    monkeypatch.setattr(tq, "_card_hit_chunk",
+                        lambda *a: made.append(chunk(*a)) or made[-1])
+    monkeypatch.setattr(torch, "cat",
+                        lambda *a, **kw: cats.append(1) or cat(*a, **kw))
+    r0, h0 = cuda_query.ranges.launches, cuda_query.hits.launches
+    rows = api.seq_kmer_pos(g, q, 21)
+    assert len(made) == 1 and not cats
+    assert rows.data_ptr() == made[0].data_ptr()
+    assert (cuda_query.ranges.launches, cuda_query.hits.launches) == (
+        r0 + 1, h0 + 1)
+    assert cuda_query.ranges.by_device[rows.device.index] >= 1
+    assert rows.dtype == torch.int32 and rows.is_contiguous()
+    monkeypatch.undo()
+    assert torch.equal(rows.cpu(), api.seq_kmer_pos(c, q, 21))
+
+
+def test_query_wrappers_never_wait_for_the_card(cuda):
+    from kmer_hasher_tpu_torch.index import query as tq
+    from kmer_hasher_tpu_torch.ops import cuda_query
+
+    g, _ = query_index(cuda, 21)
+    q = query_ref()[3_000_000: 3_100_000]
+    x = torch.from_numpy(q).to(cuda)
+    key, valid = cuda_encode.encode(x, 21, q.shape[0])
+    lb, cnt, cum = tq._card_ranges(g.s_key, g.n_valid, q, x, 21)
+    w0 = cuda_query.ranges.windows
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lb2, c2 = cuda_query.ranges(key, valid, g.s_key, g.n_valid, -1)
+        rows = cuda_query.hits(g.s_pos, lb, cnt, cum, 21, 0, 5000)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cuda_query.ranges.windows == w0 + q.shape[0]
+    assert torch.equal(lb2, lb) and torch.equal(c2, cnt)
+    assert torch.equal(rows, tq._hit_chunk(g.s_pos, lb, cnt, cum, 21, 0,
+                                           5000))
+
+
+def test_query_wrappers_raise_on_the_card(cuda):
+    from kmer_hasher_tpu_torch.ops import cuda_query
+
+    key = torch.zeros(64, dtype=torch.int64, device=cuda)
+    valid = torch.ones(64, dtype=torch.bool, device=cuda)
+    s_key = torch.zeros(128, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        cuda_query.ranges(key[::2], valid[::2], s_key, 8, -1)
+    with pytest.raises(ValueError):
+        cuda_query.ranges(key, valid, s_key.cpu(), 8, -1)
+    pos = torch.zeros(128, dtype=torch.int32, device=cuda)
+    cum = torch.arange(1, 65, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        cuda_query.hits(pos[::2], key, key, cum, 4, 0, 8)
 
 
 def read_batch(rng, k, B=300, L=151, quals="binned"):
