@@ -59,6 +59,10 @@ MAX_K = 32
 BATCH_ROWS = 1 << 15  # reads per batch of the file entries
 _SWEEP_EVERY = 64  # batches between exact re-counts of flagged reads
 _NA = -(2 ** 31)  # INT_MIN, R's NA_integer_
+# the batch uploads' stream, one a card for the process: the caching
+# allocator keeps a stream's freed blocks for that stream alone, so a new
+# stream a call would allocate every batch anew
+_COPY_STREAMS: dict = {}
 
 
 def win_bucket(lmax: int, k: int) -> int:
@@ -213,6 +217,15 @@ def _iter_file_batches(path, max_reads: Optional[int], skip: int = 0,
     yield from _prefetch(produce(), 2, info)
 
 
+def _copy_stream(dev: torch.device) -> "torch.cuda.Stream":
+    """The card's one copy stream, made on first use."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = _COPY_STREAMS.get(idx)
+    if stream is None:
+        stream = _COPY_STREAMS[idx] = torch.cuda.Stream(idx)
+    return stream
+
+
 def _device_batches(batches: Iterable, dev: torch.device,
                     stats: Optional[dict] = None):
     """Batches for the counting loop: each a (seq, qual, lengths, has_qual)
@@ -221,8 +234,9 @@ def _device_batches(batches: Iterable, dev: torch.device,
     its rows). Yields (the four as tensors on ``dev``, lengths and has_qual
     as host numpy arrays for control flow, the records).
 
-    Host batches reach a card through pinned buffers on a copy stream, one
-    batch ahead: the copy of batch N+1 overlaps the device work on batch N.
+    Host batches reach a card through pinned buffers on the card's copy
+    stream (:func:`_copy_stream`), one batch ahead: the copy of batch N+1
+    overlaps the device work on batch N.
     Two sets of pinned buffers are kept and reused in turn (one per batch
     in flight), each grown to the largest batch it has held. ``stats``
     accumulates ``h2d_bytes`` (bytes sent from the host) and ``copy_s`` (the
@@ -240,7 +254,7 @@ def _device_batches(batches: Iterable, dev: torch.device,
                        *host_view(b))
             yield out
         return
-    copy = torch.cuda.Stream(dev)
+    copy = _copy_stream(dev)
     slots = [{"bufs": {}, "done": None} for _ in range(2)]
     turn = 0
 

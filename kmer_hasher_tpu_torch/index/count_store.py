@@ -50,7 +50,10 @@ through B3, or, when the table is too large for one merge's workspace,
 to the host, splitters are taken at evenly spaced ranks of the largest
 run, and per range the ``searchsorted`` slice of every host run goes to the
 device, the slices merge two at a time through B3, and the pieces
-concatenate into the base table. :func:`_fold_budget_bytes` says when.
+concatenate into the base table. The fold budget says when: the
+store's ``fold_budget_bytes`` where it is given (on any device, the CPU
+included), else :func:`_fold_budget_bytes`. A ranged fold is bitwise the
+plain one.
 
 **Drop.** ``budget_semantics="drop"`` (``mode="ktree"`` with
 ``max_size_bytes``) is the reference's silent budget (src/kmer_tree.c:51-76):
@@ -111,10 +114,16 @@ class _Staging:
     host's move of the other, and the run itself lives in ordinary (pageable)
     host memory of exactly its size. The copies and their events go on the
     store's device's current stream, whichever device is current. For a CPU
-    store both directions are the identity."""
+    store both directions are the identity.
 
-    def __init__(self, dev: torch.device):
+    On a CUDA store every call adds its bytes and host seconds to
+    ``timings["staging_bytes"]`` and ``timings["staging_s"]``, with no
+    synchronisation of its own: ``to_device`` returns before its last
+    chunk (at most ``_STAGE_BYTES``) lands."""
+
+    def __init__(self, dev: torch.device, timings: dict):
         self.dev = dev
+        self.timings = timings
         self._bufs: Optional[list] = None
         self._events: Optional[list] = None
 
@@ -130,9 +139,14 @@ class _Staging:
         return [(a, min(a + _STAGE_BYTES, n))
                 for a in range(0, n, _STAGE_BYTES)]
 
+    def _count(self, nbytes: int, t0: float) -> None:
+        self.timings["staging_bytes"] += nbytes
+        self.timings["staging_s"] += time.perf_counter() - t0
+
     def to_host(self, t: torch.Tensor) -> torch.Tensor:
         if self.dev.type != "cuda":
             return t
+        t0 = time.perf_counter()
         out = torch.empty(t.shape, dtype=t.dtype)
         src = t.contiguous().reshape(-1).view(torch.uint8)
         dst = out.reshape(-1).view(torch.uint8)
@@ -148,11 +162,13 @@ class _Staging:
                 a, b = chunks[i - 1]
                 events[(i - 1) % 2].synchronize()
                 dst[a:b].copy_(bufs[(i - 1) % 2][: b - a])
+        self._count(src.numel(), t0)
         return out
 
     def to_device(self, t: torch.Tensor) -> torch.Tensor:
         if self.dev.type != "cuda":
             return t
+        t0 = time.perf_counter()
         out = torch.empty(t.shape, dtype=t.dtype, device=self.dev)
         src = t.contiguous().reshape(-1).view(torch.uint8)
         dst = out.reshape(-1).view(torch.uint8)
@@ -162,6 +178,7 @@ class _Staging:
             bufs[i % 2][: b - a].copy_(src[a:b])
             dst[a:b].copy_(bufs[i % 2][: b - a], non_blocking=True)
             events[i % 2].record(torch.cuda.current_stream(self.dev))
+        self._count(src.numel(), t0)
         return out
 
 
@@ -266,9 +283,14 @@ class CountStore:
     times. ``spills``, ``spill_s`` and ``spilled_rows`` account for the runs
     that left the device, ``ranged_folds`` and ``ranges`` for the folds
     that went by key range and the non-empty ranges they merged.
+    ``rejoin_s`` and ``rejoined_rows`` are the host seconds inside
+    ``kmh.store.rejoin`` (the spilled runs, or a ranged fold's slices,
+    back to the device and their merges) and the rows uploaded there;
+    ``staging_bytes`` and ``staging_s`` the bytes and host seconds of every
+    copy through the pinned staging buffers (a CUDA store only).
 
-    ``spill_bytes`` / ``spill_dir`` and ``budget_semantics`` are described
-    in the module's docstring.
+    ``spill_bytes`` / ``spill_dir`` / ``fold_budget_bytes`` and
+    ``budget_semantics`` are described in the module's docstring.
     """
 
     def __init__(self, k: int, counts_n: int = 1, prefix_bits: int = 0,
@@ -276,7 +298,8 @@ class CountStore:
                  max_size_bytes: Optional[int] = None,
                  budget_semantics: str = "error",
                  spill_bytes: Optional[int] = None,
-                 spill_dir: Optional[str] = None, device="cuda"):
+                 spill_dir: Optional[str] = None,
+                 fold_budget_bytes: Optional[int] = None, device="cuda"):
         if not 1 <= k <= 32:
             raise ValueError("k must be in 1..32")
         if counts_n < 1:
@@ -321,16 +344,19 @@ class CountStore:
         self.run_build_size = 1 << 16
         self.spill_bytes = spill_bytes
         self.spill_dir = spill_dir
+        self.fold_budget_bytes = fold_budget_bytes
         # runs off the device: ('mem', (keys, cnt) on the host) or
         # ('file', path of an .npz with those two arrays)
         self._spilled: List[Tuple[str, object]] = []
         self._spilled_rows = 0
         self._spill_seq = 0
-        self._staging = _Staging(self.device)
         self.timings = {"tier_merges": 0, "tier_merge_s": 0.0,
                         "tier_merge_rows": 0, "folds": 0, "fold_merges": 0,
                         "fold_s": 0.0, "spills": 0, "spill_s": 0.0,
-                        "spilled_rows": 0, "ranged_folds": 0, "ranges": 0}
+                        "spilled_rows": 0, "ranged_folds": 0, "ranges": 0,
+                        "rejoin_s": 0.0, "rejoined_rows": 0,
+                        "staging_bytes": 0, "staging_s": 0.0}
+        self._staging = _Staging(self.device, self.timings)
 
     def _empty_table(self) -> Run:
         return (torch.zeros(0, dtype=torch.int64, device=self.device),
@@ -529,21 +555,37 @@ class CountStore:
         self.timings["fold_merges"] += 1
         return merge_runs((a, b))
 
+    def _fold_budget(self) -> int:
+        """The store's ``fold_budget_bytes``, else the device's default."""
+        if self.fold_budget_bytes is not None:
+            return int(self.fold_budget_bytes)
+        return _fold_budget_bytes(self.device)
+
     def _ranged_fold_needed(self, acc_rows: int) -> bool:
         """True when the plain rejoin's last merge (all rows of the table
         in, MERGE_PEAK_FACTOR times their bytes at its peak) would not fit
         the fold budget."""
         rows = acc_rows + self._spilled_rows
         return (rows * self._row_bytes * MERGE_PEAK_FACTOR
-                > _fold_budget_bytes(self.device))
+                > self._fold_budget())
+
+    def _upload(self, keys: torch.Tensor, cnt: torch.Tensor) -> Run:
+        """A host run (or slice of one) to the device, for the rejoin."""
+        self.timings["rejoined_rows"] += int(keys.shape[0])
+        return self._staging.to_device(keys), self._staging.to_device(cnt)
 
     def _fold_spilled(self, acc: Optional[Run]) -> Run:
         """Merge the spilled runs back into the accumulator one at a time
         (on the device at any moment: the accumulator, one run and their
         merge's workspace). With no accumulator the first run seeds it."""
-        for run in self._take_spilled():
-            run = tuple(self._staging.to_device(t) for t in run)
-            acc = run if acc is None else self._merge_in_fold(acc, run)
+        if not self._spilled:
+            return acc
+        t0 = time.perf_counter()
+        with span("kmh.store.rejoin"):
+            for run in self._take_spilled():
+                run = self._upload(*run)
+                acc = run if acc is None else self._merge_in_fold(acc, run)
+        self.timings["rejoin_s"] += time.perf_counter() - t0
         return acc
 
     def _fold_spilled_ranged(self) -> Run:
@@ -560,7 +602,7 @@ class CountStore:
         (within the fold budget) and, at the end, the concatenation."""
         host_runs = list(self._take_spilled())
         total_rows = sum(int(r[0].shape[0]) for r in host_runs)
-        per_range = max(1, _fold_budget_bytes(self.device)
+        per_range = max(1, self._fold_budget()
                         // (MERGE_PEAK_FACTOR * self._row_bytes))
         n_ranges = max(1, -(-total_rows // per_range))
         big = max(host_runs, key=lambda r: int(r[0].shape[0]))[0].numpy()
@@ -571,18 +613,20 @@ class CountStore:
                                                      side="left"),
                                 [r[0].shape[0]]]) for r in host_runs]
         pieces = []
-        for r in range(n_ranges):
-            merged = None
-            for (keys, cnt), cut in zip(host_runs, cuts):
-                i0, i1 = int(cut[r]), int(cut[r + 1])
-                if i1 <= i0:
-                    continue
-                part = (self._staging.to_device(keys[i0:i1]),
-                        self._staging.to_device(cnt[i0:i1]))
-                merged = part if merged is None else self._merge_in_fold(
-                    merged, part)
-            if merged is not None:
-                pieces.append(merged)
+        t0 = time.perf_counter()
+        with span("kmh.store.rejoin"):
+            for r in range(n_ranges):
+                merged = None
+                for (keys, cnt), cut in zip(host_runs, cuts):
+                    i0, i1 = int(cut[r]), int(cut[r + 1])
+                    if i1 <= i0:
+                        continue
+                    part = self._upload(keys[i0:i1], cnt[i0:i1])
+                    merged = part if merged is None else self._merge_in_fold(
+                        merged, part)
+                if merged is not None:
+                    pieces.append(merged)
+        self.timings["rejoin_s"] += time.perf_counter() - t0
         self.timings["ranged_folds"] += 1
         self.timings["ranges"] += len(pieces)
         return (torch.cat([p[0] for p in pieces]),

@@ -213,7 +213,8 @@ def test_folds_of_two_runs_are_counted_apart_from_tier_merges():
     assert set(t.timings) == {"tier_merges", "tier_merge_s",
                               "tier_merge_rows", "folds", "fold_merges",
                               "fold_s", "spills", "spill_s", "spilled_rows",
-                              "ranged_folds", "ranges"}
+                              "ranged_folds", "ranges", "rejoin_s",
+                              "rejoined_rows", "staging_bytes", "staging_s"}
     assert t.timings["spills"] == t.timings["ranged_folds"] == 0
 
 
@@ -269,3 +270,101 @@ def test_ktree_budget_raises_like_jax():
     rng = np.random.default_rng(3)
     with pytest.raises(MemoryError):
         fill(CountStore(16, device="cpu"), j, rng, 16, defer=False)
+
+
+# -- the fold budget as a keyword ---------------------------------------------
+
+def spill_batches(seed, k, n_batches=8, size=1500, pool_size=4000):
+    """Seeded k-mers with repeats within and across batches, many more
+    distinct ones than a 4 KiB spill budget holds."""
+    rng = np.random.default_rng(seed)
+    top = (1 << (2 * k)) - 1
+    pool = rng.integers(0, top, size=pool_size, dtype=np.uint64,
+                        endpoint=True)
+    pool[0], pool[1] = top, 0
+    for _ in range(n_batches):
+        idx = rng.integers(0, pool_size, size=size)
+        yield pool[idx], rng.random(size) < 0.9
+
+
+def feed(stores, seed, k):
+    for raw, valid in spill_batches(seed, k):
+        for st in stores:
+            if isinstance(st, JaxStore):
+                st.add_kmers(*lanes(raw), jnp.asarray(valid), defer=True)
+            else:
+                st.add_kmers(torch.from_numpy(raw.view(np.int64)),
+                             torch.from_numpy(valid), defer=True)
+
+
+FOLD_BUDGET = 4096
+
+
+@pytest.mark.parametrize("k", [21, 32])
+def test_fold_budget_keyword_folds_by_range_bitwise_the_plain_table(
+        k, monkeypatch):
+    """A CPU store given ``fold_budget_bytes`` spills, folds by key range
+    in several ranges, and gives the table and spectrum of the same reads
+    with nothing spilled, and of the JAX store whose fold budget is the
+    same number by ``KMH_FOLD_BUDGET_BYTES``. The keyword wins over the
+    variable."""
+    monkeypatch.setenv("KMH_FOLD_BUDGET_BYTES", str(1 << 60))
+    t = CountStore(k, spill_bytes=4096, fold_budget_bytes=FOLD_BUDGET,
+                   device="cpu")
+    plain = CountStore(k, device="cpu")
+    j = JaxStore(k, spill_bytes=4096)
+    t.run_build_size = plain.run_build_size = j.run_build_size = 1 << 9
+    feed((t, plain, j), 5 + k, k)
+    assert t.fold_budget_bytes == FOLD_BUDGET
+    t.flush(), plain.flush()
+    tm = t.timings
+    assert tm["spills"] >= 2
+    assert tm["ranged_folds"] == 1 and tm["ranges"] >= 2
+    # every spilled run (the resident ones spilled at the fold included)
+    # went up once, slice by slice
+    assert tm["rejoined_rows"] == tm["spilled_rows"] > 0
+    assert tm["rejoin_s"] > 0
+    assert tm["staging_bytes"] == 0  # a CPU store stages nothing
+    assert torch.equal(t.keys, plain.keys) and torch.equal(t.cnt, plain.cnt)
+    for max_count in (1, 9, 300):
+        np.testing.assert_array_equal(t.spectrum(max_count),
+                                      plain.spectrum(max_count))
+    monkeypatch.setenv("KMH_FOLD_BUDGET_BYTES", str(FOLD_BUDGET))
+    assert j._ranged_fold_needed(0)
+    assert t.counts_dict() == j.counts_dict()
+    np.testing.assert_array_equal(t.spectrum(300), j.spectrum(300))
+
+
+def test_fold_budget_keyword_wins_over_a_small_variable(monkeypatch):
+    """With the variable tiny and the keyword large, the fold rejoins the
+    spilled runs one at a time; ``rejoined_rows`` counts their rows."""
+    monkeypatch.setenv("KMH_FOLD_BUDGET_BYTES", str(FOLD_BUDGET))
+    t = CountStore(21, spill_bytes=4096, fold_budget_bytes=1 << 40,
+                   device="cpu")
+    plain = CountStore(21, device="cpu")
+    t.run_build_size = plain.run_build_size = 1 << 9
+    feed((t, plain), 17, 21)
+    spilled = t._spilled_rows
+    assert len(t._spilled) >= 2 and not t._ranged_fold_needed(10 ** 6)
+    t.flush(), plain.flush()
+    tm = t.timings
+    assert tm["ranged_folds"] == 0 and tm["ranges"] == 0
+    assert tm["rejoined_rows"] == spilled == tm["spilled_rows"]
+    assert torch.equal(t.keys, plain.keys) and torch.equal(t.cnt, plain.cnt)
+
+
+def test_fold_budget_none_reads_the_variable(monkeypatch):
+    """Without the keyword the budget is ``_fold_budget_bytes`` as before:
+    the variable where it is set, else none to protect on the CPU."""
+    t = CountStore(21, spill_bytes=0, device="cpu")
+    assert t.fold_budget_bytes is None
+    monkeypatch.delenv("KMH_FOLD_BUDGET_BYTES", raising=False)
+    assert t._fold_budget() == tcs._fold_budget_bytes(torch.device("cpu"))
+    assert not t._ranged_fold_needed(10 ** 12)
+    monkeypatch.setenv("KMH_FOLD_BUDGET_BYTES", "800")
+    assert t._fold_budget() == 800
+    assert t._ranged_fold_needed(11) and not t._ranged_fold_needed(10)
+    given = CountStore(21, spill_bytes=0, fold_budget_bytes=1600,
+                       device="cpu")
+    assert given._fold_budget() == 1600
+    assert given._ranged_fold_needed(21) and not given._ranged_fold_needed(20)

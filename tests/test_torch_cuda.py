@@ -554,8 +554,30 @@ def test_counting_on_card_matches_cpu(cuda, exact_ll):
                        api.seq_kmer_depth(c, probe, k))
 
 
+def test_counting_calls_share_one_copy_stream(cuda):
+    """Every ``count_batches`` call on a card uploads on the card's one copy
+    stream, so that a later call reuses the batch blocks that an earlier
+    one freed: counting the same batches again allocates nothing anew."""
+    k = 21
+    rng = np.random.default_rng(6)
+    seq, qual, lengths = read_batch(rng, k, B=2000)
+    batches = [(seq, qual, lengths, np.ones(2000, bool))] * 3
+    assert counting._copy_stream(cuda) is counting._copy_stream(cuda)
+    tables = []
+    for i in range(3):
+        st = api.CountStore(k, device=cuda)
+        counting.count_batches(st, batches, k)
+        tables.append(st.counts_dict())
+        del st
+        torch.cuda.synchronize()
+        if i == 1:
+            allocs = torch.cuda.memory_stats(cuda)["num_device_alloc"]
+    assert torch.cuda.memory_stats(cuda)["num_device_alloc"] == allocs
+    assert tables[0] == tables[1] == tables[2]
+
+
 SIGN = np.uint64(1 << 63)
-FIVE_KEYS = np.array([0, 1, 2 ** 63, 2 ** 64 - 1, 42], np.uint64)
+FIVE_KEYS =np.array([0, 1, 2 ** 63, 2 ** 64 - 1, 42], np.uint64)
 
 
 def sorted_runs(rng, lens, dup, flagged=True):

@@ -35,6 +35,7 @@ PARENTS = {
     "kmh.store.spill": {"kmh.count.batch", "kmh.count.sweep",
                         "kmh.store.fold"},
     "kmh.store.fold": {"kmh.count", "kmh.store.spectrum"},
+    "kmh.store.rejoin": {"kmh.store.fold"},
     "kmh.store.spectrum": {None},
     "kmh.index.build": {None},
     "kmh.index.encode": {"kmh.index.build"},
@@ -113,7 +114,7 @@ FLOWS = {
     "count": (count_flow, {"kmh.count", "kmh.count.stage", "kmh.count.batch",
                            "kmh.count.sweep", "kmh.store.tier_merge",
                            "kmh.store.spill", "kmh.store.fold",
-                           "kmh.store.spectrum"}),
+                           "kmh.store.rejoin", "kmh.store.spectrum"}),
     "file": (file_flow, {"kmh.count", "kmh.io.wait", "kmh.count.stage",
                          "kmh.count.batch", "kmh.count.sweep",
                          "kmh.store.fold", "kmh.store.spectrum"}),
@@ -230,6 +231,77 @@ def test_no_span_is_open_across_a_yield(items, tmp_path):
     assert ranges
     for a, b, _n in mine:
         assert not any(x < b and a < y for x, y, _p in ranges)
+
+
+def spilled_store(dev, fold_budget_bytes=None) -> api.CountStore:
+    """A store whose runs spill to host memory, with its adds pending."""
+    st = api.CountStore(21, device=dev, spill_bytes=4096,
+                        fold_budget_bytes=fold_budget_bytes)
+    st.run_build_size = 1 << 9
+    rng = np.random.default_rng(8)
+    pool = rng.integers(0, 1 << 42, size=4000, dtype=np.int64)
+    for _ in range(8):
+        raw = pool[rng.integers(0, pool.size, size=1500)]
+        st.add_kmers(torch.from_numpy(raw), torch.ones(raw.size, dtype=bool),
+                     defer=True)
+    return st
+
+
+def test_a_fold_with_nothing_spilled_opens_no_rejoin():
+    """Without a spill the fold neither opens ``kmh.store.rejoin`` nor adds
+    to its counters."""
+    st = api.CountStore(21, device=CPU)
+    raw = np.random.default_rng(9).integers(0, 1 << 42, size=3000,
+                                            dtype=np.int64)
+    st.add_kmers(torch.from_numpy(raw), torch.ones(raw.size, dtype=bool))
+    _out, tr = traced(st.flush)
+    names = {n for _a, _b, n in program_spans(tr)}
+    assert "kmh.store.fold" in names and "kmh.store.rejoin" not in names
+    assert st.timings["rejoin_s"] == 0.0 and st.timings["rejoined_rows"] == 0
+
+
+@pytest.mark.parametrize("budget", [None, 4096])
+def test_rejoin_opens_inside_the_fold(budget):
+    """``kmh.store.rejoin`` opens once a fold, inside ``kmh.store.fold``,
+    for the plain rejoin (runs back one at a time) and the ranged one."""
+    st = spilled_store(CPU, budget)
+    assert len(st._spilled) >= 2
+    _out, tr = traced(st.flush)
+    ranges = program_spans(tr)
+    rejoins = [r for r in ranges if r[2] == "kmh.store.rejoin"]
+    assert len(rejoins) == 1
+    assert innermost(ranges, *rejoins[0][:2])[2] == "kmh.store.fold"
+    for a, b, n in ranges:
+        assert n in PARENTS, n
+    tm = st.timings
+    assert tm["ranged_folds"] == (budget is not None)
+    assert tm["rejoined_rows"] == tm["spilled_rows"] > 0
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; torch.cuda.is_available() is false")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [None, 4096])
+def test_staging_bytes_are_the_rows_spilled_and_rejoined(cuda, budget):
+    """On a card every byte of a spill and of a rejoin goes through the
+    pinned staging buffers once, and the table is the CPU store's."""
+    st = spilled_store(cuda, budget)
+    cpu = spilled_store(CPU)
+    st.flush(), cpu.flush()
+    torch.cuda.synchronize()
+    tm = st.timings
+    assert tm["spills"] >= 2 and tm["ranged_folds"] == (budget is not None)
+    assert tm["rejoined_rows"] == tm["spilled_rows"] > 0
+    assert tm["staging_bytes"] == 16 * (tm["spilled_rows"]
+                                        + tm["rejoined_rows"])
+    assert tm["staging_s"] > 0
+    assert torch.equal(st.keys.cpu(), cpu.keys)
+    assert torch.equal(st.cnt.cpu(), cpu.cnt)
 
 
 # -- port_bench/spans.py on synthetic traces (nanoseconds) -----------------
