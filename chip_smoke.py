@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the position-index path
-(also through the merge sort behind KMH_MERGE_SORT=1, and sharded by key
-hash over 8 logical shards), the quality-filtered
+(also sharded by key hash over 8 logical shards), the quality-filtered
 counting path (also into 8 key-hash shards, in one process and over gloo
 ranks that share the card), the per-base-threshold
 entries, the sort-design probes of both rounds and the DMA probes, the
@@ -66,9 +65,8 @@ is nonzero:
              lookup_counts and positions_of of 4,096 sampled keys equal its
              lookup_range; a k=21 sharded index: seq_kmer_pos of the query
              in ascending blocks and kmer_pairs_sharded against a sharded
-             index of the query stretch equal the single index's; the k=32
-             build and its range partition under KMH_MERGE_SORT=1 equal
-             the flag-off shards (B3: the merge rounds of the 16 sorts);
+             index of the query stretch equal the single index's (B3 never
+             launches);
    main (sharded index procs) — the same path over several processes:
              gloo ranks of this script (``--rank SPEC RANK``) sharing the
              card, each through ShardedKmerIndex(seq, 32, make_mesh(8,
@@ -76,16 +74,12 @@ is nonzero:
              ranks on 2^22 + 1 bases (ranks 2 and 3 encode no window);
              each rank's sha256 digests of its tables, pair drain,
              lookups, query rows and cross-index pairs equal the single
-             KmerIndex's, its hash and range shards (flag off and on) the
-             one-process 8-shard index's, timed before and after the ranks;
+             KmerIndex's, its hash and range shards the one-process 8-shard
+             index's, timed before and after the ranks;
              the slowest rank's walls and each rank's exchange and gather
              seconds and bytes; launches counted in the ranks (path
              sharded_index_procs: B1 once a build and once a query on every
-             rank, B3 the merge rounds under the flag);
-   main (merge sort) — build_index_arrays at 2^26 windows for k=32 and
-             k=21 with KMH_MERGE_SORT=1, bitwise equal to the flag-off
-             result, and the 40,000,000-base make_kmer_hash(k=32) with its
-             table checks under the flag (B3: log2(R) launches per build);
+             rank, B3 never);
 5. main (counting) — 64 batches x 29,696 reads x 151 bases drawn on the
              card from a 4,000,000-base genome (both strands, 0.5%
              substitutions, NovaSeq-binned qualities), k=21, min_q=20,
@@ -98,8 +92,8 @@ is nonzero:
              count_kmers_fq of that file (the threshold path), equal to the
              CPU's stores; then 4 full-width batches with stress qualities,
              where hybrid flags reads and re-scans them in f64, against
-             exact. Kernel launches are counted per path (index, merge-sort
-             index, counting, file, threshold, probes, spill, probes_r3,
+             exact. Kernel launches are counted per path (index, counting,
+             file, threshold, probes, spill, probes_r3,
              cli, probes_dma, sharded, sharded_index, sharded_procs,
              sharded_index_procs, bench, e2e, hybrid_probe,
              sharded_hybrid, large_pairs, counting_stress, multidevice,
@@ -185,7 +179,7 @@ is nonzero:
              tools/chip_probes/spill_regime.py): 244 batches x 29,696
              uniform-random 151-base reads, k=21, min_q=20, through
              _fused_rp_batch and add_run into CountStore(spill_bytes=1.5
-             GiB); flush by the ranged fold (KMH_FOLD_BUDGET_BYTES = 3 GiB,
+             GiB); flush by the ranged fold (fold_budget_bytes = 3 GiB,
              that script's value), spectrum(10); at least 2 spills, 4
              ranges and 5e8 distinct k-mers, and the sliced exact control
              (a second store fed only the keys whose top 10 of 42 bits are
@@ -224,11 +218,10 @@ is nonzero:
              each kernel and library call also by its device time
              (torch.profiler) and its host time per call; P10, P1 and P6
              against their library calls in turns;
-             build_index_arrays with the flag off and on, the index
-             path, the sharded index's build beside the single build in
-             turns, its range partition, tables + drain and the device's
-             idle share over a sharded build, one threshold_scan batch, and
-             the counting rates E2E /
+             build_index_arrays, the index path, the sharded index's
+             build beside the single build in turns, its range partition,
+             tables + drain and the device's idle share over a sharded
+             build, one threshold_scan batch, and the counting rates E2E /
              FUSED / FSM with the share of tier merges, of the fold, and
              the device's idle share over the whole 64-batch loop; the
              counting cell through one store and through 8 shards in turns.
@@ -272,9 +265,9 @@ QUAL_BINS, QUAL_P = b"F:,#", (0.88, 0.08, 0.02, 0.02)  # NovaSeq RTA3
 DEPTH_AT, DEPTH_LEN = 1_000_000, 1_000_000
 FILE_READS = 50_000
 STRESS_BATCHES = 4
-# B3's shapes: a sort round of the 2^26 index build (2^11 runs of the merge
-# sort's row length, then the last round's 2 runs of 2^25), and the count
-# store's tier merge at the size of the counting cell's last merges
+# B3's shapes: a sort round of 2^26 rows (2^11 runs of 2^15, then the last
+# round's 2 runs of 2^25), and the count store's tier merge at the size of
+# the counting cell's last merges
 SORT_N, SORT_ROWS = 1 << 26, 1 << 11
 FIVE_N = 1 << 22
 STORE_A, STORE_B = 7_000_000, 4_000_000
@@ -962,30 +955,18 @@ def phase_times(seq: np.ndarray, card: str):
             f"{split_txt(row)} | {card}")
     k = 32
 
-    # flag off and on in turns (off, on, on, off, ...), after a warm-up
-    # of each, so the two are compared within one call on one card
-    before = os.environ.get("KMH_MERGE_SORT")
-    times = {"0": [], "1": []}
-    try:
-        for flag in ("0", "1", "0", "1", "1", "0", "0", "1", "1", "0"):
-            os.environ["KMH_MERGE_SORT"] = flag
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = build_index_arrays(x, k, SEQ_LEN)
-            torch.cuda.synchronize()
-            times[flag].append(time.perf_counter() - t0)
-            del out
-    finally:
-        if before is None:
-            del os.environ["KMH_MERGE_SORT"]
-        else:
-            os.environ["KMH_MERGE_SORT"] = before
-    med, med_on = (statistics.median(times[f][1:]) for f in ("0", "1"))
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = build_index_arrays(x, k, SEQ_LEN)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    med = statistics.median(times[1:])
     log(f"[times] build_index_arrays, k=32, 2^26 windows: median "
-        f"{med * 1e3:.3f} ms of 4 = {L / med:,.0f} k-mers/s "
-        f"(window axis / time); with KMH_MERGE_SORT=1 (row sorts + 11 "
-        f"rounds of B3) median {med_on * 1e3:.3f} ms of 4 = "
-        f"{L / med_on:,.0f} k-mers/s, in turns within this call | {card}")
+        f"{med * 1e3:.3f} ms of 4 after a warm-up = {L / med:,.0f} k-mers/s "
+        f"(window axis / time) | {card}")
 
     t0 = time.perf_counter()
     idx = api.make_kmer_hash(seq, k, device="cuda")
@@ -1255,7 +1236,7 @@ def merge_cases(gen, rng) -> dict:
     among them); the store shape is two runs of unique keys, about half of
     the shorter one's shared, with the implicit row-number payload."""
     from kmer_hasher_tpu_torch.ops import cuda_merge as b3
-    from kmer_hasher_tpu_torch.ops import merge_sort as ms
+    from kmer_hasher_tpu_torch.probes._common import lex_sort
 
     i32_min = torch.iinfo(torch.int32).min
 
@@ -1265,7 +1246,7 @@ def merge_cases(gen, rng) -> dict:
 
     def runs(keys, pay, rows):
         n = keys.shape[0]
-        k, p = ms.lex_sort(keys.reshape(rows, -1), pay.reshape(rows, -1))
+        k, p = lex_sort(keys.reshape(rows, -1), pay.reshape(rows, -1))
         return k.reshape(-1), p.reshape(-1), np.arange(0, n + 1, n // rows)
 
     cases = {}
@@ -1335,7 +1316,7 @@ def phase_kernels_merge(cases: dict) -> float:
     """B3 against its plain version on the same CUDA tensors, bitwise:
     merged keys and merged payload over every pair's span."""
     from kmer_hasher_tpu_torch.ops import cuda_merge as b3
-    from kmer_hasher_tpu_torch.ops import merge_sort as ms
+    from kmer_hasher_tpu_torch.probes._common import unsigned_pay
 
     worst = 0.0
     for name, (keys, pay, bounds) in cases.items():
@@ -1349,7 +1330,7 @@ def phase_kernels_merge(cases: dict) -> float:
                                  f"{name}, max_abs_err={err}")
         if len(bounds) == 3 and keys.shape[0] > 1:
             # one pair: the output is one sorted run, checked on its own
-            k, q = got[0], ms.unsigned_pay(got[1])
+            k, q = got[0], unsigned_pay(got[1])
             ok = (k[1:] > k[:-1]) | ((k[1:] == k[:-1]) & (q[1:] >= q[:-1]))
             if not bool(ok.all()):
                 raise AssertionError(f"B3 output is not sorted: {name}")
@@ -1363,89 +1344,16 @@ def phase_kernels_merge(cases: dict) -> float:
     return worst
 
 
-def phase_main_merge_sort(seq: np.ndarray):
-    """The index path through the merge sort: KMH_MERGE_SORT=1 sends
-    sort_windows through phase-1 row sorts and log2(R) rounds of B3.
-    build_index_arrays at 2^26 windows for k=32 and k=21 must equal the
-    flag-off result bitwise, and make_kmer_hash(k=32) of the whole sequence
-    must pass the index checks under the flag."""
-    from kmer_hasher_tpu_torch import api
-    from kmer_hasher_tpu_torch.index.position_index import build_index_arrays
-    from kmer_hasher_tpu_torch.ops import merge_sort as ms
-
-    L = 1 << 26
-    x = torch.full((L,), ord("N"), dtype=torch.uint8, device="cuda")
-    x[:SEQ_LEN] = torch.from_numpy(seq).cuda()
-    before = os.environ.get("KMH_MERGE_SORT")
-    names = ("s_key", "s_pos", "n_valid", "starts", "seg_ids")
-    try:
-        os.environ["KMH_MERGE_SORT"] = "0"
-        off = {k: build_index_arrays(x, k, SEQ_LEN) for k in (32, 21)}
-        os.environ["KMH_MERGE_SORT"] = "1"
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        on = {k: build_index_arrays(x, k, SEQ_LEN) for k in (32, 21)}
-        idx = api.make_kmer_hash(seq, 32, device="cuda")
-        tabs = api.kmer_pos(idx, 2 | 8)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_launches("merge_sort_index")
-    finally:
-        if before is None:
-            del os.environ["KMH_MERGE_SORT"]
-        else:
-            os.environ["KMH_MERGE_SORT"] = before
-    for k in (32, 21):
-        for name, a, b in zip(names, on[k], off[k]):
-            if not torch.equal(a, b):
-                raise AssertionError(
-                    f"k={k}: {name} differs with KMH_MERGE_SORT=1")
-    check_index(idx, seq, 32)
-    if int(tabs["count"].long().sum()) != idx.n_valid:
-        raise AssertionError("flagged index: counts do not sum to n_valid")
-    if tabs["pos"].shape != (idx.n_valid, 2):
-        raise AssertionError("flagged index: pos table shape")
-    rounds = (L // ms.LT).bit_length() - 1
-    if launches[2] != 3 * rounds:
-        raise AssertionError(
-            f"the flagged builds launched B3 {launches[2]} times, want "
-            f"{rounds} per build (log2 of {L // ms.LT} runs) x 3")
-    log(f"[main] merge sort: KMH_MERGE_SORT=1, build_index_arrays at 2^26 "
-        f"windows, k=32 and k=21: s_key, s_pos, n_valid, starts, seg_ids "
-        f"bitwise equal to the flag-off build; make_kmer_hash(k=32) of "
-        f"{SEQ_LEN:,} bases + kmer_pos(2|8) pass the index checks "
-        f"(n_valid {idx.n_valid:,}); {wall:.3f} s; B3 launches "
-        f"{launches[2]} = {rounds} rounds x 3 builds (rows of {ms.LT}), "
-        f"B1 launches {launches[0]}")
-    return launches
-
-
-def merge_rounds(n: int) -> int:
-    """B3 launches of one sort of ``n`` rows under KMH_MERGE_SORT=1: padded
-    to a power of two N, log2(N / LT) rounds where N >= 2 LT, else none."""
-    from kmer_hasher_tpu_torch.ops import merge_sort as ms
-
-    N = 1 << max(0, (n - 1).bit_length())
-    return (N // ms.LT).bit_length() - 1 if N >= 2 * ms.LT else 0
-
-
-def same_index_shards(a, b) -> bool:
-    return all(torch.equal(x.s_key, y.s_key) and torch.equal(x.s_pos, y.s_pos)
-               for x, y in zip(a, b))
-
-
 def phase_main_sharded_index(seq: np.ndarray):
     """The sharded position index on 8 logical shards, through the entries
     a user calls: ShardedKmerIndex(seq, 32, make_mesh(8)) of the index
     cell's sequence, tables(2|8) and the full pair drain, lookup_counts and
     positions_of of 4,096 sampled keys; a k=21 sharded index,
     seq_kmer_pos of the 1,000,000-base query, and kmer_pairs_sharded of it
-    against a sharded index of the query stretch; then the k=32 build and
-    its range partition again under KMH_MERGE_SORT=1. Each is held
-    bitwise against the single KmerIndex (built before the counts are set
-    to 0) or the flag-off shards. Launches counted (path sharded_index):
-    B1 once a build and once a query, B3 only under the flag."""
+    against a sharded index of the query stretch. Each is held bitwise
+    against the single KmerIndex (built before the counts are set to 0).
+    Launches counted (path sharded_index): B1 once a build and once a
+    query, B3 never."""
     from kmer_hasher_tpu_torch import api
     from kmer_hasher_tpu_torch.index.query import kmer_pairs
     from kmer_hasher_tpu_torch.ops import encode as enc
@@ -1492,17 +1400,6 @@ def phase_main_sharded_index(seq: np.ndarray):
     xpairs = kmer_pairs_sharded(sh21, shq)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    before = os.environ.get("KMH_MERGE_SORT")
-    try:
-        os.environ["KMH_MERGE_SORT"] = "1"
-        flagged = ShardedKmerIndex(seq, 32, mesh)
-        flagged_rp = flagged._range_partitioned()
-        torch.cuda.synchronize()
-    finally:
-        if before is None:
-            del os.environ["KMH_MERGE_SORT"]
-        else:
-            os.environ["KMH_MERGE_SORT"] = before
     launches = read_launches("sharded_index")
 
     if sh.device.type != "cuda" or any(s.s_key.device.type != "cuda"
@@ -1534,16 +1431,12 @@ def phase_main_sharded_index(seq: np.ndarray):
                              "index's, or its blocks do not ascend")
     if not torch.equal(xpairs, one_xpairs):
         raise AssertionError("kmer_pairs_sharded differs from kmer_pairs")
-    if not (same_index_shards(flagged.shards, sh.shards)
-            and same_index_shards(flagged_rp, sh._range_partitioned())):
-        raise AssertionError("KMH_MERGE_SORT=1: the sharded index differs")
-    rounds = sum(merge_rounds(s.n_valid) for s in flagged.shards + flagged_rp)
-    builds, queries = 4, 1
-    if launches[0] != builds + queries or launches[2] != rounds:
+    builds, queries = 3, 1
+    if launches[0] != builds + queries or launches[2]:
         raise AssertionError(
             f"the sharded index path launched B1 {launches[0]} times (want "
             f"one a build, {builds}, and one a query, {queries}) and B3 "
-            f"{launches[2]} (want {rounds} merge rounds under the flag)")
+            f"{launches[2]} (want none)")
     log(f"[main] sharded index: ShardedKmerIndex(k=32, make_mesh({SHARDS})) "
         f"of {SEQ_LEN:,} bases, chunks of {sh.chunk:,}: shards of "
         f"{', '.join(f'{n:,}' for n in sh.n_valid)} windows, each holding "
@@ -1556,13 +1449,11 @@ def phase_main_sharded_index(seq: np.ndarray):
         f"{rows.shape[0]:,} rows in {len(blocks)} ascending blocks, and "
         f"kmer_pairs_sharded against the query stretch's sharded index, "
         f"{xpairs.shape[0]:,} rows, equal the single index's; build "
-        f"{t_build:.3f} s, all {wall:.3f} s; with KMH_MERGE_SORT=1 the k=32 "
-        f"hash and range shards are bitwise the flag-off ones")
+        f"{t_build:.3f} s, all {wall:.3f} s")
     log(f"[main] sharded index: B1 launches {launches[0]} = one a build "
         f"({builds}) + one a query ({queries}), "
         f"{B1_POSITIONS['sharded_index']:,} window starts encoded; B3 "
-        f"launches {launches[2]} = the merge rounds of the 16 shard sorts "
-        f"under the flag, {B3_ROWS['sharded_index']:,} rows")
+        f"launches {launches[2]}")
     return launches
 
 
@@ -2900,42 +2791,33 @@ def phase_card_vs_cpu_spill(batches, fq: Path, tmp: Path) -> None:
     k = K_COUNT
     cut = [tuple(a[:4096] for a in b) for b in batches[:8]]
     host = [tuple(a.cpu() for a in b) for b in cut]
-    before = os.environ.get("KMH_FOLD_BUDGET_BYTES")
     seen = []
-    try:
-        for how in ("memory", "disk", "ranged"):
-            if how == "ranged":
-                os.environ["KMH_FOLD_BUDGET_BYTES"] = str(4 << 20)
-            got = {}
-            for dev, bs in (("cuda", cut), ("cpu", host)):
-                st = api.CountStore(
-                    k, spill_bytes=2 << 20, device=dev,
-                    spill_dir=str(tmp / f"spill-{dev}") if how == "disk"
-                    else None)
-                counting.count_batches(st, bs, k, min_q=MIN_Q, exact_ll=True)
-                got[dev] = st
-            g, c = got["cuda"], got["cpu"]
-            tm = g.timings
-            same = (torch.equal(g.keys.cpu(), c.keys)
-                    and torch.equal(g.cnt.cpu(), c.cnt)
-                    and (g.total_added == c.total_added).all()
-                    and (api.kmer_spectrum(g, 255)
-                         == api.kmer_spectrum(c, 255)).all())
-            if not same or tm["spills"] < 2 or (
-                    tm["ranged_folds"] != int(how == "ranged")) or (
-                    how == "ranged" and tm["ranges"] < 4):
-                raise AssertionError(
-                    f"spill to {how}: card and CPU differ, or the card store "
-                    f"did not spill as meant: {tm}")
-            if how == "disk" and list(tmp.glob("spill-*/kmh_spill_*")):
-                raise AssertionError("spill files were left behind")
-            seen.append(f"{how} ({tm['spills']} spills, {tm['ranges']} "
-                        f"ranges, {g.n_unique:,} k-mers)")
-    finally:
-        if before is None:
-            os.environ.pop("KMH_FOLD_BUDGET_BYTES", None)
-        else:
-            os.environ["KMH_FOLD_BUDGET_BYTES"] = before
+    for how in ("memory", "disk", "ranged"):
+        got = {}
+        for dev, bs in (("cuda", cut), ("cpu", host)):
+            st = api.CountStore(
+                k, spill_bytes=2 << 20, device=dev,
+                spill_dir=str(tmp / f"spill-{dev}") if how == "disk" else None,
+                fold_budget_bytes=4 << 20 if how == "ranged" else None)
+            counting.count_batches(st, bs, k, min_q=MIN_Q, exact_ll=True)
+            got[dev] = st
+        g, c = got["cuda"], got["cpu"]
+        tm = g.timings
+        same = (torch.equal(g.keys.cpu(), c.keys)
+                and torch.equal(g.cnt.cpu(), c.cnt)
+                and (g.total_added == c.total_added).all()
+                and (api.kmer_spectrum(g, 255)
+                     == api.kmer_spectrum(c, 255)).all())
+        if not same or tm["spills"] < 2 or (
+                tm["ranged_folds"] != int(how == "ranged")) or (
+                how == "ranged" and tm["ranges"] < 4):
+            raise AssertionError(
+                f"spill to {how}: card and CPU differ, or the card store "
+                f"did not spill as meant: {tm}")
+        if how == "disk" and list(tmp.glob("spill-*/kmh_spill_*")):
+            raise AssertionError("spill files were left behind")
+        seen.append(f"{how} ({tm['spills']} spills, {tm['ranges']} "
+                    f"ranges, {g.n_unique:,} k-mers)")
     drop = {dev: api.count_kmers_fq(
         str(fq), k=k, min_q=MIN_Q, max_mem_gb=1, max_reads=10_000,
         budget_semantics="drop", device=dev) for dev in ("cuda", "cpu")}
@@ -3903,7 +3785,7 @@ def phase_main_sharded_procs(fq: Path, fq50: Path, single_big, single_wall,
 # bases make chunks of 2^20 whose fifth holds one base, so ranks 2 and 3
 # of 4 encode no window
 IX_PROCS = ((2, SEQ_LEN), (4, PREFIX + 1))
-IX_BUILDS, IX_QUERIES = 4, 1  # B1 launches a rank: k=32, k=21, query, flag
+IX_BUILDS, IX_QUERIES = 3, 1  # B1 launches a rank: k=32, k=21, query
 
 
 class Digest:
@@ -3975,8 +3857,7 @@ def index_rank_worker(spec: dict, rank: int) -> None:
     dig["lookup"] = digest(step("lookups", lambda: sh.lookup_counts(q)))
     dig["positions"] = digest(step("positions", lambda: sh.positions_of(q)))
     timings = {"k32": dict(sh.timings)}
-    n_valid = sh.n_valid.tolist()
-    flag_off = (dig["hash_shards"], dig["range_shards"])
+    n_valid, device = sh.n_valid.tolist(), str(sh.device)
     sh.drop_range_partition()
     del sh
     sh21 = step("build_k21", lambda: ShardedKmerIndex(seq, 21, mesh))
@@ -3990,29 +3871,12 @@ def index_rank_worker(spec: dict, rank: int) -> None:
         sh21, shq)))
     timings.update(k21=dict(sh21.timings), query=dict(shq.timings))
     del sh21, shq
-    off = read_launches()
-    before = os.environ.get("KMH_MERGE_SORT")
-    os.environ["KMH_MERGE_SORT"] = "1"
-    try:
-        flagged = step("build_flag", lambda: ShardedKmerIndex(seq, 32, mesh))
-        flagged_rp = flagged._range_partitioned()
-        torch.cuda.synchronize()
-    finally:
-        if before is None:
-            del os.environ["KMH_MERGE_SORT"]
-        else:
-            os.environ["KMH_MERGE_SORT"] = before
-    flag_same = (shard_digests(flagged.shards),
-                 shard_digests(flagged_rp)) == flag_off
-    rounds = sum(merge_rounds(s.n_valid) for s in flagged.shards + flagged_rp)
     launches = read_launches()
     rec = {"rank": rank, "info": info, "local": list(mesh.local_shards),
-           "device": str(flagged.device), "n_valid": n_valid, "walls": walls,
-           "digests": dig, "flag_same": flag_same, "rounds": rounds,
-           "launches": list(launches), "launches_flag_off": list(off),
+           "device": device, "n_valid": n_valid, "walls": walls,
+           "digests": dig, "launches": list(launches),
            "b3_rows": b3.merge.rows, "b1_positions": b1.encode.positions,
            "timings": timings}
-    del flagged, flagged_rp
     mesh.barrier()
     print(json.dumps(rec), flush=True)
 
@@ -4093,17 +3957,15 @@ def phase_main_sharded_index_procs(seq: np.ndarray, card: str):
     tables(2|8) and the full pair drain, lookup_counts and positions_of of
     4,096 sampled keys, a k=21 index with seq_kmer_pos of the
     1,000,000-base query and kmer_pairs_sharded against a sharded index of
-    the query stretch, and the k=32 build and range partition again under
-    KMH_MERGE_SORT=1: 2 ranks on the index cell's 40,000,000 bases (chunks
+    the query stretch: 2 ranks on the index cell's 40,000,000 bases (chunks
     0-4 hold windows: rank 0's four chunks 33,554,432 bases, rank 1's
     6,445,568), then 4 ranks on 2^22 + 1 bases (ranks 2 and 3 encode
     none). Every rank's digests must equal the single KmerIndex's,
     computed here, and
     its hash and range shards the one-process 8-shard index's, which is
     timed before and after the ranks. B1 launches once a build and once a
-    query on every rank, B3 the merge rounds of the rank's sorts under the
-    flag only (path sharded_index_procs, counted in the ranks from 0 and
-    summed)."""
+    query on every rank, B3 never (path sharded_index_procs, counted in the
+    ranks from 0 and summed)."""
     total = [0] * len(counted_wrappers())
     b3_rows = b1_positions = 0
     summary = {}
@@ -4136,24 +3998,19 @@ def phase_main_sharded_index_procs(seq: np.ndarray, card: str):
                         bad.append(f"range shard {d}")
                 if rec["n_valid"] != want_nv:
                     bad.append("n_valid")
-                if not rec["flag_same"]:
-                    bad.append("the shards under KMH_MERGE_SORT=1")
                 if rec["device"].split(":")[0] != "cuda":
                     bad.append(f"device {rec['device']}")
                 if bad:
                     raise AssertionError(
                         f"sharded_index_procs, {P} ranks, rank {r}: "
                         f"{', '.join(bad)} differ from the single index's")
-                got, off = rec["launches"], rec["launches_flag_off"]
-                if (got[0] != IX_BUILDS + IX_QUERIES or off[2] != 0
-                        or got[2] != rec["rounds"] or not rec["rounds"]):
+                got = rec["launches"]
+                if got[0] != IX_BUILDS + IX_QUERIES or got[2]:
                     raise AssertionError(
                         f"sharded_index_procs, {P} ranks, rank {r}: B1 "
                         f"launched {got[0]} times (want one a build, "
                         f"{IX_BUILDS}, and one a query, {IX_QUERIES}), B3 "
-                        f"{off[2]} times with the flag off and {got[2]} in "
-                        f"all (want the {rec['rounds']} merge rounds of its "
-                        f"sorts under the flag)")
+                        f"{got[2]} times (want none)")
                 total = [a + b for a, b in zip(total, got)]
                 b3_rows += rec["b3_rows"]
                 b1_positions += rec["b1_positions"]
@@ -4182,14 +4039,13 @@ def phase_main_sharded_index_procs(seq: np.ndarray, card: str):
                 f"k=21 seq_kmer_pos of the {QUERY_LEN:,}-base query and "
                 f"kmer_pairs_sharded against its index equal the single "
                 f"index's (sha256), its hash and range shards the "
-                f"one-process 8-shard index's, flag off and on; slowest "
+                f"one-process 8-shard index's; slowest "
                 f"rank: build {slow['build']:.4f} s, range partition "
                 f"{slow['range_partition']:.4f} s, tables + drain "
                 f"{slow['tables_drain']:.4f} s, k=21 build "
                 f"{slow['build_k21']:.4f} s, seq_kmer_pos "
                 f"{slow['seq_kmer_pos']:.4f} s, kmer_pairs_sharded "
-                f"{slow['kmer_pairs']:.4f} s, flag build "
-                f"{slow['build_flag']:.4f} s (spawn to exit {spawn_s:.1f} s); "
+                f"{slow['kmer_pairs']:.4f} s (spawn to exit {spawn_s:.1f} s); "
                 f"one process, 8 shards, in turns: build "
                 f"{before['build']:.4f} / {after['build']:.4f} s, range "
                 f"partition {before['range_partition']:.4f} / "
@@ -4955,15 +4811,14 @@ def bound(bytes_moved: float, ops: float):
     return max(by, op) * 1e3, "bytes" if by >= op else "operations"
 
 
-PATHS = ("index", "merge_sort_index", "counting", "file", "threshold",
+PATHS = ("index", "counting", "file", "threshold",
          "probes", "spill", "probes_r3", "cli", "probes_dma", "sharded",
          "sharded_index", "sharded_procs", "sharded_index_procs", "bench",
          "e2e", "hybrid_probe", "sharded_hybrid", "large_pairs",
          "counting_stress", "multidevice", "procs_devices", "demo")
 # the paths whose B3 launches are rounds of a merge sort (32-bit payload),
 # not two-run merges of the count store (implicit payload)
-SORT_ROUND_PATHS = ("merge_sort_index", "probes_dma", "sharded_index",
-                    "sharded_index_procs")
+SORT_ROUND_PATHS = ("probes_dma",)
 
 
 def main() -> None:
@@ -5001,8 +4856,7 @@ def main() -> None:
     _, t_k32 = phase_main(seq)
     launches = {"index": read_launches("index")}
     if launches["index"][2]:
-        raise AssertionError("the index path launched B3 with the flag off")
-    launches["merge_sort_index"] = phase_main_merge_sort(seq)
+        raise AssertionError("the index path launched B3")
     launches["sharded_index"] = phase_main_sharded_index(seq)
     launches["sharded_index_procs"], ix_procs = \
         phase_main_sharded_index_procs(seq, card)

@@ -11,58 +11,16 @@ see ``ops/encode.py``). Invalid windows take the all-ones raw pattern so
 they sink to the tail; ``n_valid`` bounds the live prefix. The outputs,
 invalid tail included, equal the JAX package's.
 
-``KMH_MERGE_SORT=1``, read at call time as in the JAX package, sends a 1-D
-:func:`sort_windows` through the hierarchical merge sort
-(``ops/merge_sort.py``: row sorts, then rounds of kernel B3). The JAX
-package's other TPU-only merge paths (``bitonic_merge_lanes``,
-``lookup_bounds_merge``, ``expand_rank_merge_i64`` and the rest of the
-``KMH_MERGE_*`` ladder) compute the same answers and are not ported.
+The JAX package's merge-sort and bitonic paths compute the same answers
+and are not ported.
 """
 from __future__ import annotations
 
-import os
 from typing import Optional, Tuple
 
 import torch
 
-from .encode import SIGN, sortable_key
-
-_I32_MIN = torch.iinfo(torch.int32).min  # bit 31 of a 32-bit lane
-
-
-def _use_merge_sort() -> bool:
-    """Route full 1-D sorts through the hierarchical merge sort
-    (``ops.merge_sort``) when ``KMH_MERGE_SORT=1``."""
-    return os.environ.get("KMH_MERGE_SORT", "0") == "1"
-
-
-def _sort_windows_merge(key: torch.Tensor, valid: torch.Tensor, k: int,
-                        pos: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`sort_windows` as one lexicographic (key, payload) sort through
-    ``merge_sort.sort_kmers_merge``, with the JAX package's two payloads:
-    the position for k <= 31, and ``(invalid << 31) | position`` for
-    k == 32, where a real all-G 32-mer shares the all-ones key with the
-    invalid windows (hence the unsigned payload compare). As there, the
-    flag is tested before the packed k <= 16 form, so a k <= 16 index takes
-    the k <= 31 tail under the flag: ascending positions, raw all-ones.
-
-    An input whose length is no power of two (a shard of the sharded
-    index) is padded to one with rows that sort after every other, the
-    all-ones key with the all-ones payload, and cut back after the sort:
-    the JAX package sorts such a shard at its power-of-two capacity."""
-    from . import merge_sort as ms
-
-    pay = pos if k <= 31 else torch.where(valid, pos, pos | _I32_MIN)
-    s_key = sortable_key(torch.where(valid, key, -1))
-    n = key.shape[0]
-    n_pad = 1 << max(0, (n - 1).bit_length())
-    if n_pad != n and n_pad >= 2 * ms.LT:
-        s_key = torch.cat([s_key, s_key.new_full((n_pad - n,), -1 ^ SIGN)])
-        pay = torch.cat([pay, pay.new_full((n_pad - n,), -1)])
-    s_key, s_pay = ms.sort_kmers_merge(s_key, pay)
-    s_key, s_pay = s_key[:n], s_pay[:n]
-    return s_key, s_pay if k <= 31 else s_pay & 0x7FFFFFFF
+from .encode import sortable_key
 
 
 def sort_windows(key: torch.Tensor, valid: torch.Tensor, k: int,
@@ -90,17 +48,12 @@ def sort_windows(key: torch.Tensor, valid: torch.Tensor, k: int,
       all-ones sentinel with invalid windows; a second key (invalid flag,
       then position) breaks the tie. Done as a stable LSD pair: order by
       the second key, then stably by the k-mer.
-
-    With ``KMH_MERGE_SORT=1`` a 1-D input takes
-    :func:`_sort_windows_merge` instead; a [B, L] batch ignores the flag.
     """
     implicit = pos is None
     if implicit:
         pos = torch.arange(1, key.shape[-1] + 1, dtype=torch.int32,
                            device=key.device)
     pos = pos.to(torch.int32).expand_as(key)
-    if key.dim() == 1 and _use_merge_sort():
-        return _sort_windows_merge(key, valid, k, pos)
     if k <= 16:
         packed = torch.where(valid, (key << 32) | pos.to(torch.int64), -1)
         s = sortable_key(torch.sort(sortable_key(packed), dim=-1).values)

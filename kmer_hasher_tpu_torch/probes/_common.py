@@ -14,15 +14,33 @@ To tell the two apart, :func:`device_ms` sums what a call ran on the card
 clocks the host's work per call without a synchronisation;
 :func:`in_turns` times several functions in turns by both, so that two
 versions are compared within one process on one card.
+
+:func:`lex_sort` is the plain two-key row sort the sort probes time and
+the merge kernel's checks build their sorted runs with.
 """
 from __future__ import annotations
 
 import statistics
 import subprocess
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+
+def unsigned_pay(pay: torch.Tensor) -> torch.Tensor:
+    """An int32 payload lane as int64 values in [0, 2^32)."""
+    return pay.to(torch.int64) & 0xFFFFFFFF
+
+
+def lex_sort(key: torch.Tensor, pay: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort (int64 key, int32 payload) lexicographically along the last
+    axis, the payload compared as unsigned: a stable LSD pair of
+    ``torch.sort`` passes, payload first, then key."""
+    by_pay = torch.sort(unsigned_pay(pay), dim=-1, stable=True).indices
+    s_key, order = torch.sort(key.gather(-1, by_pay), dim=-1, stable=True)
+    return s_key, pay.gather(-1, by_pay.gather(-1, order))
 
 
 def card_line(dev: torch.device) -> str:

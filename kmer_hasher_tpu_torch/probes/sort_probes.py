@@ -15,7 +15,7 @@ One line per answer, each with ``ok=`` and the card's name and power limit:
        device (P3): one tile with shift 5, and 2^log_n / 2^13 tiles;
   E3b  the same tile flattened, shift 777 (P4);
   E4   two-key row sorts of [2^log_n / L, L] for L = 2^13, 2^15, 2^17
-       through ``ops.merge_sort.lex_sort`` (phase 1 of the merge sort);
+       through ``_common.lex_sort`` (phase 1 of the JAX merge sort);
   E5   the flat two-key sort, and a flat one-key stable ``torch.sort``.
 
 E4 and E5 launch no kernel of the port. A probe that fails raises: here a
@@ -30,9 +30,8 @@ import numpy as np
 import torch
 
 from ..index.position_index import resolve_device
-from ..ops import merge_sort
 from . import cuda_probes as cp
-from ._common import card_line, timeit
+from ._common import card_line, lex_sort, timeit
 
 TILE = (64, 128)  # the rotated tile: 2^13 elements
 SHIFT_ROWS, SHIFT_FLAT = 5, 777
@@ -151,8 +150,8 @@ def e4_batched_row_sort(n: int, dev: torch.device, card: str) -> List[dict]:
     for log_l in ROW_LOGS:
         L = min(1 << log_l, n)
         rows = (k1.reshape(-1, L), k2.reshape(-1, L))
-        ok = _rows_sorted(*merge_sort.lex_sort(*rows))
-        dt = timeit(lambda: merge_sort.lex_sort(*rows), dev, iters=2)
+        ok = _rows_sorted(*lex_sort(*rows))
+        dt = timeit(lambda: lex_sort(*rows), dev, iters=2)
         _report(f"E4 row sort [{n // L}, 2^{L.bit_length() - 1}] (i64,u32): "
                 f"ok={ok} {dt * 1e3:.3f} ms ({dt / n * 1e9:.3f} ns/elem)",
                 ok, card)
@@ -168,7 +167,7 @@ def e5_flat_sort(n: int, dev: torch.device, card: str) -> List[dict]:
         return s, k2[order]
 
     out = []
-    for name, fn in (("2key", lambda: merge_sort.lex_sort(k1, k2)),
+    for name, fn in (("2key", lambda: lex_sort(k1, k2)),
                      ("1key-stable", one_key)):
         ok = _rows_sorted(*fn())
         dt = timeit(fn, dev, iters=2)

@@ -12,7 +12,7 @@ in the JAX script's order:
        gathers): what one pass of a two-pass LSD sort would cost;
   R5   the log2(L) compare-exchange stages that clean bitonic rows
        [2^log_n / L, L], L = 2^13 and 2^15, in plain tensor operations,
-       beside the full row sort (``ops.merge_sort.lex_sort``);
+       beside the full row sort (``_common.lex_sort``);
   R2   row windows copied between offsets only the device knows, in step
        order (P5), 512 and 8 rows a copy: the TPU probe's 64 steps, whose
        write windows overlap, and every window of x once;
@@ -34,10 +34,9 @@ import numpy as np
 import torch
 
 from ..index.position_index import resolve_device
-from ..ops import merge_sort
 from . import cuda_probes as cp
 from . import cuda_probes_r3 as cp3
-from ._common import card_line, timeit
+from ._common import card_line, lex_sort, timeit
 from .sort_probes import (_arange32, _report, _rows_sorted, reference_offsets,
                           spread_offsets)
 
@@ -152,7 +151,7 @@ def r5_bitonic_clean_rows(n: int, dev: torch.device, card: str) -> List[dict]:
             torch.equal(k1[got[1].reshape(-1).long()], got[0].reshape(-1)))
         dt = timeit(lambda: bitonic_clean(k1, k2, rows, length), dev, iters=2)
         full = (k1.reshape(rows, length), k2.reshape(rows, length))
-        dt_sort = timeit(lambda: merge_sort.lex_sort(*full), dev, iters=2)
+        dt_sort = timeit(lambda: lex_sort(*full), dev, iters=2)
         _report(f"R5 bitonic clean rows [{rows}, 2^{length.bit_length() - 1}]"
                 f" (i64,u32): ok={ok} {dt * 1e3:.3f} ms "
                 f"({dt / n * 1e9:.3f} ns/elem); the full row sort "

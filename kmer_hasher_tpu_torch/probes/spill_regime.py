@@ -23,11 +23,11 @@ drawn on the device from a generator seeded 1000 + i.
 
 Environment: ``SPILL_BATCHES`` (244), ``SPILL_K`` (21), ``SPILL_BYTES``
 (``3 << 29``), ``SPILL_ROWS`` (the largest multiple of 1,024 with rows x
-windows <= 2^22), ``KMH_FOLD_BUDGET_BYTES`` (3 GiB here; the store reads
-it). Prints the card line, a line a spill, the loop, fold, spectrum and
-control lines, and ``SPILL_REGIME {json}``; raises where the control
-differs, where fewer than 2 runs spilled, or where a run of at least 5e8
-windows gives fewer than 5e8 distinct k-mers.
+windows <= 2^22), ``KMH_FOLD_BUDGET_BYTES`` (3 GiB here, passed to both
+stores as ``fold_budget_bytes``). Prints the card line, a line a spill,
+the loop, fold, spectrum and control lines, and ``SPILL_REGIME {json}``;
+raises where the control differs, where fewer than 2 runs spilled, or
+where a run of at least 5e8 windows gives fewer than 5e8 distinct k-mers.
 """
 from __future__ import annotations
 
@@ -92,46 +92,39 @@ def run(n_batches: int = 244, k: int = 21, spill_bytes: int = 3 << 29,
           f"~{n_reads * nw / 1e8:.1f}e8 windows", flush=True)
     lengths = torch.full((rows,), READ_LEN, dtype=torch.int32, device=dev)
     has_qual = torch.ones(rows, dtype=torch.bool, device=dev)
-    before = os.environ.get("KMH_FOLD_BUDGET_BYTES")
-    os.environ["KMH_FOLD_BUDGET_BYTES"] = str(fold_budget)
-    try:
-        sync(dev)
-        t_all = time.perf_counter()
-        store = CountStore(k, counts_n=1, mode="sh", spill_bytes=spill_bytes,
-                           device=dev)
-        control = CountStore(k, counts_n=1, mode="sh", device=dev)
-        for i in range(n_batches):
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(1000 + i)
-            seq, qual = e2e.draw_batch(gen, rows, READ_LEN, "stress", dev)
-            keys, cnt, n_obs = counting._fused_rp_batch(
-                seq, qual, lengths, has_qual, k, 1, 0, min_ll_f, "fast",
-                min_q_char=33 + min_q, n_win=nw)[:3]
-            control.add_run(*control_slice(keys, cnt))
-            spills = store.timings["spills"]
-            t0 = time.perf_counter()
-            store.add_run(keys, cnt, n_obs)
-            if store.timings["spills"] > spills:
-                print(f"  batch {i + 1}/{n_batches}: spill "
-                      f"#{store.timings['spills']} "
-                      f"({time.perf_counter() - t0:.3f}s incl. readback); "
-                      f"host-spilled rows so far: "
-                      f"{store.timings['spilled_rows']:,}", flush=True)
-        sync(dev)
-        t_loop = time.perf_counter() - t_all
-        loop_tm = dict(store.timings)
-        print(f"count loop: {t_loop:.3f}s ({n_reads / t_loop:,.0f} reads/s "
-              f"incl. {loop_tm['spill_s']:.3f}s spill readback), "
-              f"{loop_tm['spills']} spills", flush=True)
+    sync(dev)
+    t_all = time.perf_counter()
+    store = CountStore(k, counts_n=1, mode="sh", spill_bytes=spill_bytes,
+                       fold_budget_bytes=fold_budget, device=dev)
+    control = CountStore(k, counts_n=1, mode="sh",
+                         fold_budget_bytes=fold_budget, device=dev)
+    for i in range(n_batches):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1000 + i)
+        seq, qual = e2e.draw_batch(gen, rows, READ_LEN, "stress", dev)
+        keys, cnt, n_obs = counting._fused_rp_batch(
+            seq, qual, lengths, has_qual, k, 1, 0, min_ll_f, "fast",
+            min_q_char=33 + min_q, n_win=nw)[:3]
+        control.add_run(*control_slice(keys, cnt))
+        spills = store.timings["spills"]
         t0 = time.perf_counter()
-        store.flush()
-        sync(dev)
-        t_fold = time.perf_counter() - t0
-    finally:
-        if before is None:
-            del os.environ["KMH_FOLD_BUDGET_BYTES"]
-        else:
-            os.environ["KMH_FOLD_BUDGET_BYTES"] = before
+        store.add_run(keys, cnt, n_obs)
+        if store.timings["spills"] > spills:
+            print(f"  batch {i + 1}/{n_batches}: spill "
+                  f"#{store.timings['spills']} "
+                  f"({time.perf_counter() - t0:.3f}s incl. readback); "
+                  f"host-spilled rows so far: "
+                  f"{store.timings['spilled_rows']:,}", flush=True)
+    sync(dev)
+    t_loop = time.perf_counter() - t_all
+    loop_tm = dict(store.timings)
+    print(f"count loop: {t_loop:.3f}s ({n_reads / t_loop:,.0f} reads/s "
+          f"incl. {loop_tm['spill_s']:.3f}s spill readback), "
+          f"{loop_tm['spills']} spills", flush=True)
+    t0 = time.perf_counter()
+    store.flush()
+    sync(dev)
+    t_fold = time.perf_counter() - t0
     tm = store.timings
     distinct, total = store.n_unique, int(store.total_added.sum())
     print(f"fold (ranged rejoin: {tm['ranged_folds']} ranged folds, "

@@ -16,10 +16,10 @@ from kmer_hasher_tpu_torch import api
 from kmer_hasher_tpu_torch import counting
 from kmer_hasher_tpu_torch.index import count_store
 from kmer_hasher_tpu_torch.ops import cuda_encode, cuda_merge, cuda_scan
-from kmer_hasher_tpu_torch.ops import merge_sort
 from kmer_hasher_tpu_torch.probes import (cuda_probes, cuda_probes_dma,
                                           cuda_probes_r3, dma_probes_r3,
                                           sort_probes, sort_probes_r3)
+from kmer_hasher_tpu_torch.probes._common import lex_sort, unsigned_pay
 from kmer_hasher_tpu_torch.qll import Q_TO_LL
 
 pytestmark = pytest.mark.cuda
@@ -577,6 +577,7 @@ def test_counting_calls_share_one_copy_stream(cuda):
 
 
 SIGN = np.uint64(1 << 63)
+SORT_N = 1 << 26  # the last round of a 2^26-row sort: two runs of 2^25
 FIVE_KEYS =np.array([0, 1, 2 ** 63, 2 ** 64 - 1, 42], np.uint64)
 
 
@@ -664,28 +665,76 @@ def test_b3_payloads_above_2_31_at_the_last_sort_round(cuda):
     keys = five[torch.randint(0, 5, (n,), generator=gen, device=cuda)]
     pay = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
                         device=cuda, dtype=torch.int32)
-    k2, p2 = merge_sort.lex_sort(keys.reshape(2, -1), pay.reshape(2, -1))
+    k2, p2 = lex_sort(keys.reshape(2, -1), pay.reshape(2, -1))
     keys, pay = k2.reshape(-1), p2.reshape(-1)
     del k2, p2
     bounds = (0, n // 2, n)
     got = cuda_merge.merge(keys, pay, bounds)
     want = cuda_merge.plain(keys, pay, bounds)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert bool((merge_sort.unsigned_pay(got[1]) >= 2 ** 31).any())
+    assert bool((unsigned_pay(got[1]) >= 2 ** 31).any())
 
 
-@pytest.mark.parametrize("dup", [False, True])
-def test_b3_merge_sort_matches_the_ordinary_sort(cuda, dup):
-    rng = np.random.default_rng(11 + dup)
-    n, Lt = 1 << 20, 1 << 12
-    keys, pay, _b = sorted_runs(rng, (n,), dup)
-    perm = torch.from_numpy(rng.permutation(n))
-    keys, pay = keys[perm].to(cuda), pay[perm].to(cuda)
+SORT_ROUND_INPUTS = ("index payload", "five keys", "one key", "A before B",
+                     "B before A")
+
+
+def sort_round_input(gen, dev, kind):
+    """(keys, payload) of 2^26 rows as two sorted runs of 2^25 (the last
+    round of a 2^26-row sort): random keys with a tenth of the windows
+    invalid and the k = 32 index payload, (invalid << 31) | position;
+    five keys with that payload shuffled; the all-ones key alone with
+    uniform 32-bit payloads, so the payload orders every row; random keys
+    whose every A row sorts before every B row, and the same runs swapped."""
+    n = SORT_N
+    ones = 2 ** 63 - 1  # the raw all-ones pattern (all-G, invalid), sortable
+    i32 = dict(generator=gen, device=dev, dtype=torch.int32)
+    rand64 = ((torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
+                             device=dev) << 32)
+              | torch.randint(0, 1 << 32, (n,), generator=gen, device=dev))
+    pos = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    if kind in ("index payload", "five keys"):
+        if kind == "index payload":
+            invalid = torch.rand(n, generator=gen, device=dev) < 0.1
+            keys = torch.where(invalid, ones, rand64)
+        else:
+            five = torch.from_numpy((FIVE_KEYS ^ SIGN).view(np.int64)).to(dev)
+            keys = five[torch.randint(0, 5, (n,), generator=gen, device=dev)]
+            invalid = keys == ones
+        pay = torch.where(invalid, pos | torch.iinfo(torch.int32).min, pos)
+        if kind == "five keys":
+            pay = pay[torch.randperm(n, generator=gen, device=dev)]
+    elif kind == "one key":
+        keys = torch.full((n,), ones, dtype=torch.int64, device=dev)
+        pay = torch.randint(-(1 << 31), 1 << 31, (n,), **i32)
+    else:
+        k, p = lex_sort(rand64, torch.randint(-(1 << 31), 1 << 31, (n,),
+                                              **i32))
+        if kind == "B before A":
+            k, p = k.roll(n // 2), p.roll(n // 2)
+        return k, p
+    k, p = lex_sort(keys.reshape(2, -1), pay.reshape(2, -1))
+    return k.reshape(-1), p.reshape(-1)
+
+
+@pytest.mark.parametrize("kind", SORT_ROUND_INPUTS)
+def test_b3_at_the_sort_round_shape_matches_plain(cuda, kind):
+    """B3 with an explicit payload at a sort round's shape, 2 x 2^25 rows,
+    against its plain version on the card: one launch, the same keys and
+    payloads, one run sorted by (key, unsigned payload)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(SORT_ROUND_INPUTS.index(kind))
+    keys, pay = sort_round_input(gen, cuda, kind)
+    bounds = (0, SORT_N // 2, SORT_N)
     before = cuda_merge.merge.launches
-    got = merge_sort.sort_kmers_merge(keys, pay, Lt=Lt)
-    assert cuda_merge.merge.launches == before + 8  # log2(n / Lt) rounds
-    want = merge_sort.lex_sort(keys, pay)
+    got = cuda_merge.merge(keys, pay, bounds)
+    assert cuda_merge.merge.launches == before + 1
+    want = cuda_merge.plain(keys, pay, bounds)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    del want
+    k, q = got[0], unsigned_pay(got[1])
+    assert bool(((k[1:] > k[:-1])
+                 | ((k[1:] == k[:-1]) & (q[1:] >= q[:-1]))).all())
 
 
 def test_b3_rejects_what_it_does_not_take(cuda):
@@ -716,29 +765,6 @@ def test_two_run_store_merge_on_card_matches_cpu(cuda, counts_n):
     c = count_store.merge_runs(runs)
     assert torch.equal(g[0].cpu(), c[0]) and torch.equal(g[1].cpu(), c[1])
     assert int(g[1].sum()) == sum(int(r[1].sum()) for r in runs)
-
-
-@pytest.mark.parametrize("k", [16, 21, 32])
-def test_flagged_index_on_card_matches_flag_off(cuda, k, monkeypatch):
-    rng = np.random.default_rng(70 + k)
-    seq = random_seq(rng, 1 << 17, n_runs=40)
-    seq[3000:3400] = seq[1000:1400]
-    seq[9000:9100] = ord("G")  # real all-G windows
-    monkeypatch.setenv("KMH_MERGE_SORT", "0")
-    off = api.make_kmer_hash(seq, k, device=cuda)
-    monkeypatch.setenv("KMH_MERGE_SORT", "1")
-    monkeypatch.setattr(merge_sort, "LT", 1 << 12)
-    before = cuda_merge.merge.launches
-    on = api.make_kmer_hash(seq, k, device=cuda)
-    assert cuda_merge.merge.launches == before + 5  # 2^17 / 2^12 runs
-    cpu = api.make_kmer_hash(seq, k, device="cpu")  # flag on, plain rounds
-    nv = on.n_valid
-    assert nv == off.n_valid == cpu.n_valid
-    for name in ("s_key", "s_pos", "starts"):
-        assert torch.equal(getattr(on, name).cpu(), getattr(cpu, name)), name
-        assert torch.equal(getattr(on, name)[:nv], getattr(off, name)[:nv])
-        if k > 16:
-            assert torch.equal(getattr(on, name), getattr(off, name)), name
 
 
 def threshold_file(tmp_path, rng, k):
@@ -1278,18 +1304,15 @@ def test_sharded_store_on_card_matches_cpu(cuda, spill, tmp_path):
 
 
 @pytest.mark.parametrize("k", [11, 16, 21, 32])  # k < 11: 10^9 pair rows
-@pytest.mark.parametrize("flag", ["0", "1"])
-def test_sharded_index_on_card_matches_cpu(cuda, k, flag, monkeypatch):
+def test_sharded_index_on_card_matches_cpu(cuda, k):
     """The sharded index on 8 logical shards on the card against the same
     on the CPU: hash shards, splitters, range shards, tables, pair chunks,
-    lookups, seq_kmer_pos and kmer_pairs_sharded, bitwise; with
-    KMH_MERGE_SORT=1 too (every shard's sort through B3); one B1 launch a
+    lookups, seq_kmer_pos and kmer_pairs_sharded, bitwise; one B1 launch a
     build."""
     from kmer_hasher_tpu_torch.parallel import (ShardedKmerIndex,
                                                 kmer_pairs_sharded,
                                                 make_mesh)
 
-    monkeypatch.setenv("KMH_MERGE_SORT", flag)
     rng = np.random.default_rng(900 + k)
     seq = random_seq(rng, 300_000, 40)
     seq[50_000:60_000] = seq[10_000:20_000]

@@ -376,7 +376,6 @@ def runs(inputs, tmp_path_factory):
                 "queries": str(inputs["dir"] / "queries.npy"),
                 "cases": cases}
         env = dict(os.environ, OMP_NUM_THREADS="1", KMH_NATIVE_IO="1")
-        env.pop("KMH_MERGE_SORT", None)
         spawn(out, P, spec, WORKER, env)
         res[layout] = (out, {c["name"]: c for c in cases})
     return res

@@ -10,8 +10,7 @@ reads them, ``tables(15)`` and the pair chunks, ``lookup_counts`` and
 ``positions_of``, the blocks of ``iter_seq_kmer_pos`` and of
 ``iter_kmer_pairs_sharded_chunks`` (at 16 rows a shard a round, so the
 streams take many rounds), ``kmer_pairs_sharded`` and its ``max_pairs``
-raise, the range partition dropped and rebuilt, and the build under
-``KMH_MERGE_SORT=1``.
+raise, and the range partition dropped and rebuilt.
 
 The inputs are ``test_torch_sharded_index.py``'s: the mixed sequence, the
 quirk sequence, 40 bases on 8 shards (chunks past the end, a halo longer
@@ -101,7 +100,6 @@ import numpy as np
 import torch
 torch.set_num_threads(1)
 from kmer_hasher_tpu_torch import api
-from kmer_hasher_tpu_torch.ops import cuda_merge, merge_sort
 from kmer_hasher_tpu_torch.parallel import (ShardedKmerIndex,
                                             iter_kmer_pairs_sharded_chunks,
                                             kmer_pairs_sharded,
@@ -184,20 +182,6 @@ for case in spec["cases"]:
         t.drop_range_partition()
         cleared = t._rp is None and t._rp_stats is None
         rec["rebuilt_equal"] = cleared and same_tables(t.tables(15), tabs)
-        calls = []
-        real, lt = cuda_merge.merge, merge_sort.LT
-        os.environ["KMH_MERGE_SORT"] = "1"
-        merge_sort.LT = 16
-        cuda_merge.merge = lambda *a: calls.append(1) or real(*a)
-        try:
-            m = ShardedKmerIndex(load("seq"), k, mesh)
-            m_rp = m._range_partitioned()
-        finally:
-            del os.environ["KMH_MERGE_SORT"]
-            merge_sort.LT, cuda_merge.merge = lt, real
-        rec["merge_equal"] = (same(m.shards, t.shards) and same(m_rp, rp)
-                              and same_tables(m.tables(15), tabs))
-        rec["merge_calls"] = len(calls)
     rec["timings"] = t.timings
     np.savez(os.path.join(out, f"{case['id']}.r{rank}.npz"), **arrays)
     with open(os.path.join(out, f"{case['id']}.r{rank}.json"), "w") as f:
@@ -271,7 +255,6 @@ def runs(files, tmp_path_factory):
     for P in PS:
         out = tmp_path_factory.mktemp(f"ranks{P}")
         env = dict(os.environ, OMP_NUM_THREADS="1")
-        env.pop("KMH_MERGE_SORT", None)
         spawn(out, P, {"out": str(out), **files}, WORKER, env)
         res[P] = out
     return res
@@ -436,13 +419,11 @@ def test_kmer_pairs_sharded_blocks(runs, P, case):
 
 @pytest.mark.parametrize("P,case", [pytest.param(P, c, id=f"P{P}-{case_id(c)}")
                                     for P in PS for c in REBUILD])
-def test_rebuild_and_merge_sort_build(runs, P, case):
-    """drop_range_partition, then tables(15) again: the same; the build
-    and range partition under KMH_MERGE_SORT=1 (through the merge rounds)
-    give the same shards and tables on every rank."""
+def test_rebuild(runs, P, case):
+    """drop_range_partition, then tables(15) again: the same tables on
+    every rank."""
     for rec, _z in rank_results(runs[P], case, P):
-        assert rec["rebuilt_equal"] and rec["merge_equal"]
-        assert rec["merge_calls"] > 0
+        assert rec["rebuilt_equal"]
 
 
 @pytest.mark.parametrize("P,case", [pytest.param(P, c, id=f"P{P}-{case_id(c)}")

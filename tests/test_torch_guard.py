@@ -38,25 +38,21 @@ with tempfile.TemporaryDirectory() as d:
     assert st2.counts_dict() == st.counts_dict()
     assert metrics.most_common_kmer(st)["count"] > 0
     assert api.count_kmers(["ACGTTGCAGG"], 5, device="cpu").n_unique > 0
-    # the per-base-threshold entries, the exact-C depth and the merge sort
-    # behind KMH_MERGE_SORT (ops.merge_sort, ops.cuda_merge)
+    # the per-base-threshold entries and the exact-C depth
     for entry in (api.count_kmers_fq, api.count_kmers_fq_sh):
         th = entry(str(fq), k=11, min_q=20, device="cpu")
         assert th.n_unique > 0
     assert api.seq_kmer_depth(th, "ACGTTGCAGGAC" * 2 + "N" + "ACGTTGCAGGA",
                               11, semantics="c").max() > 0
+# B3's plain version through its caller, the count store's two-run merge
 import os
-from kmer_hasher_tpu_torch.ops import cuda_merge, merge_sort
-os.environ["KMH_MERGE_SORT"] = "1"
-merge_sort.LT = 16
-calls = []
-real = cuda_merge.merge
-cuda_merge.merge = lambda *a: calls.append(1) or real(*a)
-idx2 = api.make_kmer_hash("ACGTTGCANNACGTTGCAGG" * 5, 5, device="cpu")
-assert len(calls) == 3 and idx2.n_valid == idx.n_valid  # 128 windows, Lt 16
-assert (idx2.s_pos[: idx.n_valid] == idx.s_pos[: idx.n_valid]).all()
-for name in ("ops.merge_sort", "ops.cuda_merge"):
-    assert "kmer_hasher_tpu_torch." + name in sys.modules, name
+import torch
+from kmer_hasher_tpu_torch.index import count_store
+one = torch.ones((3, 1), dtype=torch.int64)
+keys, cnt = count_store.merge_runs(((torch.tensor([1, 4, 9]), one),
+                                    (torch.tensor([4, 5]), one[:2])))
+assert keys.tolist() == [1, 4, 5, 9] and cnt[:, 0].tolist() == [1, 2, 1, 1]
+assert "kmer_hasher_tpu_torch.ops.cuda_merge" in sys.modules
 # the probe entry on the CPU, a store that spills to memory and to disk
 # and folds by key range, and a drop-mode store
 import contextlib, io
@@ -64,7 +60,6 @@ from kmer_hasher_tpu_torch.probes import sort_probes
 with contextlib.redirect_stdout(io.StringIO()) as out:
     sort_probes.main(["14", "--device", "cpu"])
 assert out.getvalue().count("ok=True") == 14, out.getvalue()
-import torch
 os.environ["KMH_FOLD_BUDGET_BYTES"] = "2048"
 raw = torch.arange(3000, dtype=torch.int64) * 977 % 2003
 with tempfile.TemporaryDirectory() as d:
@@ -187,7 +182,7 @@ def test_sources_name_no_jax():
     sources = list((REPO / "kmer_hasher_tpu_torch").rglob("*.py"))
     assert len(sources) >= 20
     names = {p.name for p in sources}
-    assert {"merge_sort.py", "cuda_merge.py", "cuda_probes.py",
+    assert {"sort.py", "cuda_merge.py", "cuda_probes.py",
             "sort_probes.py", "cuda_probes_r3.py", "sort_probes_r3.py",
             "__main__.py", "params.py", "native.py", "dma_probes_r3.py",
             "cuda_probes_dma.py", "mesh.py", "sharded.py",

@@ -34,10 +34,9 @@ def test_trailing_drop_matches_the_mask(k, n):
 
 
 def ref_and_query(seed, L=6000):
-    # 6,000 bases, not 3,000: the JAX package caches its jitted index
-    # build by shape and reads KMH_MERGE_SORT when it traces, so a build at
-    # test_torch_merge_sort.py's shape here would hand that file's flagged
-    # builds the unflagged program in a worker that runs both
+    # 6,000 bases: the JAX package caches its jitted index build by shape
+    # and reads its sort route's switch when it traces, so this file keeps
+    # to a shape of its own
     rng = np.random.default_rng(seed)
     ref = rng.choice(np.frombuffer(b"ACGTacgt", np.uint8), size=L)
     unit = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=50)

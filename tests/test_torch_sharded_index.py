@@ -2,8 +2,9 @@
 JAX package's ``ShardedKmerIndex`` on the 8-device virtual CPU mesh
 (``conftest.py``) and against the port's single ``KmerIndex``: the hash
 shards, the splitters and range shards, every table, the lookups, the
-streamed queries and the cross-index pairs, bitwise; the errors, the
-range partition's release, and ``sort_windows`` with explicit positions.
+streamed queries and the cross-index pairs, bitwise; the errors and the
+range partition's release (``sort_windows`` with explicit positions, the
+routed rows' sort, is in ``test_torch_sort.py``).
 
 Inputs are seeded: a mixed sequence (ACGT in both cases, N runs, a
 repeated unit and a run of 40 G, so k = 32 has real all-G windows), the
@@ -12,8 +13,6 @@ same with N plus exactly k bases at its end (the trailing-exact-k quirk),
 repeat-rich sequence whose queries drain in many chunks. The JAX shapes are
 kept few (one chunk size for the long inputs), since each compiles its own
 shard_map programs."""
-import os
-
 import numpy as np
 import pytest
 import torch
@@ -28,9 +27,7 @@ from kmer_hasher_tpu.parallel import make_mesh as jmake_mesh
 from kmer_hasher_tpu.parallel import sharded as jsp
 from kmer_hasher_tpu_torch.index import KmerIndex
 from kmer_hasher_tpu_torch.index.query import kmer_pairs, seq_kmer_pos
-from kmer_hasher_tpu_torch.ops import cuda_merge, merge_sort
 from kmer_hasher_tpu_torch.ops import encode as enc
-from kmer_hasher_tpu_torch.ops import sort as srt
 from kmer_hasher_tpu_torch.parallel import (ShardedKmerIndex,
                                             iter_kmer_pairs_sharded_chunks,
                                             kmer_pairs_sharded, make_mesh,
@@ -361,75 +358,6 @@ def test_drop_range_partition_and_rebuild(meshes):
     assert after["kmer"] == before["kmer"]
     for f in ("pos", "pair.pos", "count"):
         assert torch.equal(after[f], before[f])
-
-
-@pytest.fixture(params=["off", "on"])
-def merge_flag(request, monkeypatch):
-    """KMH_MERGE_SORT off, or on with the merge sort's row length cut to
-    16 so that a few hundred rows reach its B3 rounds (counted)."""
-    calls = []
-    if request.param == "on":
-        monkeypatch.setenv("KMH_MERGE_SORT", "1")
-        monkeypatch.setattr(merge_sort, "LT", 16)
-        real = cuda_merge.merge
-        monkeypatch.setattr(cuda_merge, "merge",
-                            lambda *a: calls.append(1) or real(*a))
-    else:
-        monkeypatch.delenv("KMH_MERGE_SORT", raising=False)
-    return request.param, calls
-
-
-@pytest.mark.parametrize("k", (16, 21, 32))
-def test_sort_windows_explicit_positions(k, merge_flag):
-    """Routed rows — the valid windows of a window axis, each with its own
-    1-based position, in position order — sort to the implicit form's live
-    prefix, which is (key, position) order; all-G 32-mers included."""
-    flag, calls = merge_flag
-    rng = np.random.default_rng(k)
-    L = 512
-    key = torch.from_numpy(rng.integers(0, 24, L)).to(torch.int64)
-    if k == 32:
-        key[rng.integers(0, L, 40)] = -1  # the raw all-G 32-mer
-    else:
-        key &= (1 << (2 * k)) - 1
-    valid = torch.from_numpy(rng.random(L) < 0.6)
-    s_key, s_pos = srt.sort_windows(key, valid, k)
-    n = int(valid.sum())
-    pos = torch.arange(1, L + 1, dtype=torch.int32)[valid]
-    e_key, e_pos = srt.sort_windows(key[valid], torch.ones(n, dtype=torch.bool),
-                                    k, pos=pos)
-    assert torch.equal(e_key, s_key[:n]) and torch.equal(e_pos, s_pos[:n])
-    assert e_pos.dtype == torch.int32
-    order = np.lexsort((pos.numpy(), enc.sortable_key(key[valid]).numpy()))
-    np.testing.assert_array_equal(e_pos.numpy(), pos.numpy()[order])
-    # explicit positions equal to the index: the implicit form, tail too
-    full = srt.sort_windows(key, valid, k, pos=torch.arange(
-        1, L + 1, dtype=torch.int32))
-    assert torch.equal(full[0], s_key) and torch.equal(full[1], s_pos)
-    if flag == "on":
-        # the 1-D sorts took the merge rounds: the routed rows (no power of
-        # two) padded to 512, the window axis at 512: 5 rounds of 16 rows
-        assert len(calls) == 3 * 5
-        assert os.environ["KMH_MERGE_SORT"] == "1"
-
-
-def test_sharded_build_under_the_merge_sort(meshes, monkeypatch):
-    """KMH_MERGE_SORT=1 sends every shard's sort through the merge sort
-    (shards padded to a power of two): the same shards and tables."""
-    _, t, _ = built(meshes, "mixed", 32)
-    monkeypatch.setenv("KMH_MERGE_SORT", "1")
-    monkeypatch.setattr(merge_sort, "LT", 16)
-    calls = []
-    real = cuda_merge.merge
-    monkeypatch.setattr(cuda_merge, "merge",
-                        lambda *a: calls.append(1) or real(*a))
-    m = ShardedKmerIndex(mixed_seq(), 32, meshes[1])
-    for a, b in zip(m.shards, t.shards):
-        assert torch.equal(a.s_key, b.s_key) and torch.equal(a.s_pos, b.s_pos)
-    tabs = m.tables(15)
-    assert tabs["kmer"] == t.tables(15)["kmer"]
-    assert torch.equal(tabs["pos"], t.pos_table())
-    assert len(calls) > 2 * D
 
 
 @pytest.mark.parametrize("k", (1, 21, 32))

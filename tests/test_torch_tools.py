@@ -303,12 +303,17 @@ def test_sharded_hybrid_equals_exact_and_jax(capsys):
 
 # -- spill_regime -------------------------------------------------------------
 
-def test_spill_regime_control_equals_the_prefix(capsys):
+def test_spill_regime_control_equals_the_prefix(capsys, monkeypatch):
     """At a tiny spill budget: runs spill, the fold goes by key range, the
     control slice equals the big table's prefix, and the table equals an
-    unspilled store's over the same runs."""
+    unspilled store's over the same runs. The fold budget reaches the
+    stores as their keyword (a variable set to a budget that never ranges
+    is neither read nor changed)."""
+    monkeypatch.setenv("KMH_FOLD_BUDGET_BYTES", str(1 << 60))
     rec = sr.run(n_batches=4, k=K, spill_bytes=20_000, rows=48,
                  fold_budget=100_000, device="cpu")
+    assert os.environ["KMH_FOLD_BUDGET_BYTES"] == str(1 << 60)
+    assert rec["store"].fold_budget_bytes == 100_000
     out = capsys.readouterr().out
     assert rec["control_ok"] and rec["control_rows"] > 0
     assert rec["loop_spills"] >= 2 and rec["ranged_folds"] == 1
