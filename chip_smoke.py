@@ -183,7 +183,8 @@ is nonzero:
              that script's value), spectrum(10); at least 2 spills, 4
              ranges and 5e8 distinct k-mers, and the sliced exact control
              (a second store fed only the keys whose top 10 of 42 bits are
-             zero equals the big table's prefix bitwise);
+             zero equals the big table's prefix bitwise); B3 runs once
+             per two-run merge and once per range round (range_rounds);
    main (tools) — the user scripts and measurement entry points of the
              port at their sources' defaults, each a path of its own:
              python -m kmer_hasher_tpu_torch.bench (2^25, k=32, chain 8;
@@ -2754,10 +2755,13 @@ def phase_main_spill(card: str):
         raise AssertionError("the folded table is not a sorted unique table "
                              "on the card that sums to total_added")
     merges = two_run_merges(store) + two_run_merges(control)
-    if launches[1] != SPILL_BATCHES or launches[2] != merges or merges < 1:
+    rounds = tm["range_rounds"] + control.timings["range_rounds"]
+    if (launches[1] != SPILL_BATCHES or launches[2] != merges + rounds
+            or tm["range_rounds"] < 1):
         raise AssertionError(
             f"the spill path launched B2 {launches[1]} and B3 {launches[2]} "
-            f"times; its stores merged two runs {merges} times")
+            f"times; its stores merged two runs {merges} times and ran "
+            f"{rounds} range rounds")
     log(f"[main] spill: {SPILL_BATCHES} batches x {ROWS:,} uniform-random "
         f"reads x {READ_LEN} = {n_reads:,} reads, k={k}, min_q={MIN_Q}, f32 "
         f"filter, spill_bytes {SPILL_BYTES >> 20} MiB, fold budget "
@@ -2769,7 +2773,8 @@ def phase_main_spill(card: str):
         f"({loop_tm['tier_merge_s']:.3f} s); fold {t_fold:.3f} s: "
         f"{tm['spills'] - loop_tm['spills']} more runs to the host "
         f"({tm['spill_s'] - loop_tm['spill_s']:.3f} s), then {tm['ranges']} "
-        f"key ranges, {tm['fold_merges']} two-run merges; spectrum(10) "
+        f"key ranges, {tm['fold_merges']} two-run merges, "
+        f"{tm['range_rounds']} range rounds; spectrum(10) "
         f"{t_spec:.3f} s, head {spec[:4].astype(np.int64).tolist()}; "
         f"{n_reads / (t_loop + t_fold):,.0f} reads/s loop + fold; peak "
         f"device memory {peak / 2 ** 30:.2f} GiB | {card}")
@@ -2778,7 +2783,9 @@ def phase_main_spill(card: str):
         f"store bitwise; B2 launches {launches[1]}, B3 launches "
         f"{launches[2]} = {two_run_merges(store)} two-run merges of the big "
         f"store (tier {tm['tier_merges']}, fold {tm['fold_merges']}) + "
-        f"{two_run_merges(control)} of the control")
+        f"{tm['range_rounds']} range rounds of its ranged fold + "
+        f"{two_run_merges(control)} two-run merges and "
+        f"{control.timings['range_rounds']} range rounds of the control")
     return launches
 
 
@@ -2817,7 +2824,9 @@ def phase_card_vs_cpu_spill(batches, fq: Path, tmp: Path) -> None:
         if how == "disk" and list(tmp.glob("spill-*/kmh_spill_*")):
             raise AssertionError("spill files were left behind")
         seen.append(f"{how} ({tm['spills']} spills, {tm['ranges']} "
-                    f"ranges, {g.n_unique:,} k-mers)")
+                    f"ranges, {tm['fold_merges']} two-run fold merges, "
+                    f"{tm['range_rounds']} range rounds, {g.n_unique:,} "
+                    f"k-mers)")
     drop = {dev: api.count_kmers_fq(
         str(fq), k=k, min_q=MIN_Q, max_mem_gb=1, max_reads=10_000,
         budget_semantics="drop", device=dev) for dev in ("cuda", "cpu")}

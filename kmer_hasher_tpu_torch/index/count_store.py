@@ -48,9 +48,14 @@ for every spill and rejoin. A fold rejoins the spilled runs one at a time
 through B3, or, when the table is too large for one merge's workspace,
 **by key range** (:meth:`CountStore._fold_spilled_ranged`): every run goes
 to the host, splitters are taken at evenly spaced ranks of the largest
-run, and per range the ``searchsorted`` slice of every host run goes to the
-device, the slices merge two at a time through B3, and the pieces
-concatenate into the base table. The fold budget says when: the
+run, and each range is merged in one pass of its own
+(:meth:`CountStore._merge_range`): the ``searchsorted`` slice of every
+host run goes up, all of the range's slices back to back through the
+pinned buffers, B3 merges them in rounds that each merge every pair of
+runs in one launch, and one gather, one collapse of equal keys and one
+readback make the range's piece; the pieces concatenate into the base
+table. The pass is apart from :func:`merge_runs`, which the tier merges
+and the plain rejoin keep. The fold budget says when: the
 store's ``fold_budget_bytes`` where it is given (on any device, the CPU
 included), else :func:`_fold_budget_bytes`. A ranged fold is bitwise the
 plain one.
@@ -118,7 +123,7 @@ class _Staging:
 
     On a CUDA store every call adds its bytes and host seconds to
     ``timings["staging_bytes"]`` and ``timings["staging_s"]``, with no
-    synchronisation of its own: ``to_device`` returns before its last
+    synchronisation of its own: ``cat_to_device`` returns before its last
     chunk (at most ``_STAGE_BYTES``) lands."""
 
     def __init__(self, dev: torch.device, timings: dict):
@@ -165,20 +170,33 @@ class _Staging:
         self._count(src.numel(), t0)
         return out
 
-    def to_device(self, t: torch.Tensor) -> torch.Tensor:
+    def cat_to_device(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Host tensors of one dtype and row shape -> their concatenation on
+        the device. A CUDA store packs the parts' bytes into the pinned
+        buffers one after another, so every copy but the last is a whole
+        buffer, however small the parts; a CPU store concatenates."""
         if self.dev.type != "cuda":
-            return t
+            return torch.cat(list(parts))
         t0 = time.perf_counter()
-        out = torch.empty(t.shape, dtype=t.dtype, device=self.dev)
-        src = t.contiguous().reshape(-1).view(torch.uint8)
+        rows = sum(int(p.shape[0]) for p in parts)
+        out = torch.empty((rows,) + tuple(parts[0].shape[1:]),
+                          dtype=parts[0].dtype, device=self.dev)
         dst = out.reshape(-1).view(torch.uint8)
+        srcs = [p.contiguous().reshape(-1).view(torch.uint8) for p in parts]
         bufs, events = self._pinned()
-        for i, (a, b) in enumerate(self._chunks(src.numel())):
+        j = u = 0  # the next byte to pack: srcs[j][u]
+        for i, (a, b) in enumerate(self._chunks(dst.numel())):
             events[i % 2].synchronize()  # the buffer's last copy has left it
-            bufs[i % 2][: b - a].copy_(src[a:b])
+            x = 0
+            while x < b - a:
+                take = min(b - a - x, srcs[j].numel() - u)
+                bufs[i % 2][x: x + take].copy_(srcs[j][u: u + take])
+                x, u = x + take, u + take
+                if u == srcs[j].numel():
+                    j, u = j + 1, 0
             dst[a:b].copy_(bufs[i % 2][: b - a], non_blocking=True)
             events[i % 2].record(torch.cuda.current_stream(self.dev))
-        self._count(src.numel(), t0)
+        self._count(dst.numel(), t0)
         return out
 
 
@@ -264,6 +282,21 @@ def merge_runs(runs: Sequence[Run]) -> Run:
     return s[starts], cnt[starts]
 
 
+def collapse_sorted(s: torch.Tensor, cnt: torch.Tensor) -> Run:
+    """Sorted keys with repeats and their count rows -> a run: each
+    equal-key group's key and the sum of its rows, a prefix sum (taken in
+    place) differenced at the group ends, exact in int64. The nonzero of
+    the group starts is its one synchronisation."""
+    first = torch.nonzero(_segment_starts(s)).squeeze(1)
+    total = cnt.cumsum_(0)
+    last = torch.empty_like(first)
+    last[:-1] = first[1:] - 1
+    last[-1:] = s.shape[0] - 1
+    seg = total[last]
+    seg[1:] -= total[last[:-1]]
+    return s[first], seg
+
+
 class CountStore:
     """Sorted multi-source count table (``suffix_hash_n`` analogue) on
     ``device``.
@@ -278,9 +311,10 @@ class CountStore:
     ``timings`` accumulates the host seconds spent in tier merges and in
     folds, each ending in the sync that reads the run's length;
     ``fold_merges`` counts the two-run merges that folds made — a fold of
-    exactly two runs, each rejoin of a spilled run, each merge of two
-    slices in a ranged fold — so B3 runs ``tier_merges + fold_merges``
-    times. ``spills``, ``spill_s`` and ``spilled_rows`` account for the runs
+    exactly two runs, each rejoin of a spilled run — and ``range_rounds``
+    the B3 launches of ranged folds (ceil(log2 S) a range of S slices), so
+    B3 runs ``tier_merges + fold_merges + range_rounds`` times.
+    ``spills``, ``spill_s`` and ``spilled_rows`` account for the runs
     that left the device, ``ranged_folds`` and ``ranges`` for the folds
     that went by key range and the non-empty ranges they merged.
     ``rejoin_s`` and ``rejoined_rows`` are the host seconds inside
@@ -352,6 +386,7 @@ class CountStore:
         self._spill_seq = 0
         self.timings = {"tier_merges": 0, "tier_merge_s": 0.0,
                         "tier_merge_rows": 0, "folds": 0, "fold_merges": 0,
+                        "range_rounds": 0,
                         "fold_s": 0.0, "spills": 0, "spill_s": 0.0,
                         "spilled_rows": 0, "ranged_folds": 0, "ranges": 0,
                         "rejoin_s": 0.0, "rejoined_rows": 0,
@@ -572,7 +607,44 @@ class CountStore:
     def _upload(self, keys: torch.Tensor, cnt: torch.Tensor) -> Run:
         """A host run (or slice of one) to the device, for the rejoin."""
         self.timings["rejoined_rows"] += int(keys.shape[0])
-        return self._staging.to_device(keys), self._staging.to_device(cnt)
+        return (self._staging.cat_to_device([keys]),
+                self._staging.cat_to_device([cnt]))
+
+    def _range_slice(self, keys: torch.Tensor, cnt: torch.Tensor) -> Run:
+        """One host run's slice of a key range, on its way to the range's
+        staging (host tensors in, host tensors out)."""
+        self.timings["rejoined_rows"] += int(keys.shape[0])
+        return keys, cnt
+
+    def _merge_range(self, parts: List[Run]) -> Run:
+        """One key range's non-empty host slices -> its piece of the table,
+        in one pass: the slices' keys go up back to back into one tensor,
+        B3 merges runs 2p and 2p+1 of every pair in one launch a round (an
+        odd run out gets an empty partner), ceil(log2 S) rounds for S
+        slices, while the host stages the count rows the same way; they
+        follow the final payload in one gather, and :func:`collapse_sorted`
+        sums equal keys. The first round takes the implicit payload, the
+        row number in the range's buffers, and every later one carries it
+        on. Device bytes at the peak, per row with one counter: 8 staged, 24
+        in a round, 28 at the gather, then the collapse's; within
+        MERGE_PEAK_FACTOR x 16."""
+        lens = [int(p[0].shape[0]) for p in parts]
+        n = sum(lens)
+        keys = self._staging.cat_to_device([p[0] for p in parts])
+        if len(parts) == 1:
+            return keys, self._staging.cat_to_device([parts[0][1]])
+        bounds = np.cumsum([0] + lens)
+        pay = None
+        while bounds.size > 2:
+            if bounds.size % 2 == 0:  # an odd number of runs
+                bounds = np.append(bounds, n)
+            keys, pay = cuda_merge.merge(keys, pay, bounds)
+            self.timings["range_rounds"] += 1
+            bounds = bounds[::2]
+        cnt = self._staging.cat_to_device([p[1] for p in parts])
+        cnt = cnt.index_select(0, pay)
+        del pay
+        return collapse_sorted(keys, cnt)
 
     def _fold_spilled(self, acc: Optional[Run]) -> Run:
         """Merge the spilled runs back into the accumulator one at a time
@@ -595,11 +667,12 @@ class CountStore:
         range r holds the keys in [splitter r-1, splitter r), the first
         range everything below the first splitter and the last everything
         from the last splitter up. Per range the slice of every host run
-        goes to the device and the slices merge two at a time through B3;
-        ranges are disjoint and ascending, so the pieces concatenate into
-        the sorted unique table. Repeated splitters give empty ranges.
-        Device bytes at the peak: the pieces so far, one range's merge
-        (within the fold budget) and, at the end, the concatenation."""
+        passes :meth:`_range_slice` and the range's slices merge in one
+        pass (:meth:`_merge_range`); ranges are disjoint and ascending, so
+        the pieces concatenate into the sorted unique table. Repeated
+        splitters give empty ranges. Device bytes at the peak: the pieces
+        so far, one range's pass (within the fold budget) and, at the end,
+        the concatenation."""
         host_runs = list(self._take_spilled())
         total_rows = sum(int(r[0].shape[0]) for r in host_runs)
         per_range = max(1, self._fold_budget()
@@ -616,16 +689,14 @@ class CountStore:
         t0 = time.perf_counter()
         with span("kmh.store.rejoin"):
             for r in range(n_ranges):
-                merged = None
+                parts = []
                 for (keys, cnt), cut in zip(host_runs, cuts):
                     i0, i1 = int(cut[r]), int(cut[r + 1])
-                    if i1 <= i0:
-                        continue
-                    part = self._upload(keys[i0:i1], cnt[i0:i1])
-                    merged = part if merged is None else self._merge_in_fold(
-                        merged, part)
-                if merged is not None:
-                    pieces.append(merged)
+                    if i1 > i0:
+                        parts.append(self._range_slice(keys[i0:i1],
+                                                       cnt[i0:i1]))
+                if parts:
+                    pieces.append(self._merge_range(parts))
         self.timings["rejoin_s"] += time.perf_counter() - t0
         self.timings["ranged_folds"] += 1
         self.timings["ranges"] += len(pieces)

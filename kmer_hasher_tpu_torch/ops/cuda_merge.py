@@ -4,8 +4,11 @@ Replaces ``kmer_hasher_tpu/ops/merge_sort.py::_merge_round_kernel`` (and
 the ``merge_path_splits`` search that ran outside it). Source:
 ``csrc/merge_path.cu``, built by :mod:`._build`. The program calls it
 from the count store's two-run merge (``index/count_store.merge_runs``:
-the tier merges and the folds' merges); the DMA probes' D4 times it at a
-sort round's shape, a 32-bit payload beside the keys.
+the tier merges and the folds' merges) and from the ranged fold's range
+pass (``CountStore._merge_range``: every pair of a key range's slices in
+one launch a round, the payload carried from round to round); the DMA
+probes' D4 times it at a sort round's shape, a 32-bit payload beside the
+keys.
 
 The function, the same for kernel and plain version: flat ``keys`` (int64
 in the port's sortable form, so signed order is k-mer order), a payload

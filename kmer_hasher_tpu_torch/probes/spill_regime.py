@@ -128,7 +128,8 @@ def run(n_batches: int = 244, k: int = 21, spill_bytes: int = 3 << 29,
     tm = store.timings
     distinct, total = store.n_unique, int(store.total_added.sum())
     print(f"fold (ranged rejoin: {tm['ranged_folds']} ranged folds, "
-          f"{tm['ranges']} ranges): {t_fold:.3f}s -> distinct={distinct:,} "
+          f"{tm['ranges']} ranges, {tm['range_rounds']} B3 rounds): "
+          f"{t_fold:.3f}s -> distinct={distinct:,} "
           f"total={total:,}", flush=True)
     t0 = time.perf_counter()
     spec = store.spectrum(10)
@@ -146,6 +147,7 @@ def run(n_batches: int = 244, k: int = 21, spill_bytes: int = 3 << 29,
            "wall_s": wall, "loop_s": t_loop,
            "spill_readback_s": loop_tm["spill_s"], "fold_s": t_fold,
            "ranged_folds": tm["ranged_folds"], "ranges": tm["ranges"],
+           "range_rounds": tm["range_rounds"],
            "spectrum_s": t_spec, "reads_per_s": n_reads / wall,
            "control_rows": n0, "control_ok": ok, "device": dev.type,
            "card": card}

@@ -24,8 +24,8 @@ DEVICE = {"scan_roofline", "merge_roofline", "idle_share.count",
           "spill_idle_share"}
 
 
-def tiny() -> dict:
-    _b, _cell, cfg, traffic = bench_run.load_cell(CELL)
+def tiny(cell: str = CELL) -> dict:
+    _b, _cell, cfg, traffic = bench_run.load_cell(cell)
     return {"config": cfg["tiny"], "traffic": traffic["tiny"]}
 
 
@@ -33,7 +33,7 @@ def metric(name: str):
     return bench_run.load_module(bench_run.HERE / "metrics" / f"{name}.py")
 
 
-def run_tiny(trace: int, monkeypatch, capsys):
+def run_tiny(trace: int, monkeypatch, capsys, cell: str = CELL):
     """The cell at its tiny size on the CPU: the result line and the
     window jobs' records."""
     jobs = []
@@ -51,9 +51,9 @@ def run_tiny(trace: int, monkeypatch, capsys):
     banned = bench_run.banned_modules
     monkeypatch.setattr(bench_run, "banned_modules",
                         lambda: [n for n in banned() if n not in before])
-    rc = bench_run.main(["--workload", CELL, "--seed", "4294967311",
+    rc = bench_run.main(["--workload", cell, "--seed", "4294967311",
                          "--seconds", "0.3", "--trace", str(trace),
-                         "--device", "cpu"], overrides=tiny())
+                         "--device", "cpu"], overrides=tiny(cell))
     out, err = capsys.readouterr()
     assert rc == 0, err
     return json.loads(out.strip().splitlines()[-1]), jobs
@@ -91,18 +91,37 @@ def test_a_range_boundary_dropped_in_the_fold_is_not_correct(
     correct."""
     from kmer_hasher_tpu_torch.index.count_store import CountStore
 
-    upload = CountStore._upload
+    range_slice = CountStore._range_slice
 
     def drop_boundary(self, keys, cnt):
         if keys.storage_offset() > 0:  # a slice past its run's start
             keys, cnt = keys[1:], cnt[1:]
-        return upload(self, keys, cnt)
+        return range_slice(self, keys, cnt)
 
-    monkeypatch.setattr(CountStore, "_upload", drop_boundary)
+    monkeypatch.setattr(CountStore, "_range_slice", drop_boundary)
     last, jobs = run_tiny(0, monkeypatch, capsys)
     assert jobs and all(j["timings"]["ranged_folds"] == 1 for j in jobs)
     assert last["correct"] is False
     assert last["checks"]["table_rows_differing"]["value"] > 0
+
+
+def test_a_store_without_spill_bytes_never_enters_the_range_pass(
+        monkeypatch, capsys):
+    """The staged cell at its tiny size: its store has no ``spill_bytes``,
+    so its flush takes the resident fold and never the ranged one."""
+    from kmer_hasher_tpu_torch.index.count_store import CountStore
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the ranged fold ran without a spill")
+
+    for name in ("_fold_spilled_ranged", "_merge_range", "_range_slice"):
+        monkeypatch.setattr(CountStore, name, refuse)
+    last, jobs = run_tiny(0, monkeypatch, capsys, cell="wgs151_k21.staged")
+    assert last["correct"] is True and jobs
+    for j in jobs:
+        tm = j["timings"]
+        assert tm["folds"] >= 1 and tm["spills"] == tm["ranged_folds"] == 0
+        assert tm["range_rounds"] == 0
 
 
 def test_the_cell_reports_its_metrics():

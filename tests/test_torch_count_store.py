@@ -212,10 +212,12 @@ def test_folds_of_two_runs_are_counted_apart_from_tier_merges():
     assert t.n_unique == 49 and int(t.cnt.sum()) == 49
     assert set(t.timings) == {"tier_merges", "tier_merge_s",
                               "tier_merge_rows", "folds", "fold_merges",
+                              "range_rounds",
                               "fold_s", "spills", "spill_s", "spilled_rows",
                               "ranged_folds", "ranges", "rejoin_s",
                               "rejoined_rows", "staging_bytes", "staging_s"}
-    assert t.timings["spills"] == t.timings["ranged_folds"] == 0
+    assert (t.timings["spills"] == t.timings["ranged_folds"]
+            == t.timings["range_rounds"] == 0)
 
 
 def test_lsm_policy_and_empty_store():

@@ -946,9 +946,11 @@ def test_spilled_store_on_card_matches_cpu(cuda, k, how, tmp_path,
         assert tm["ranged_folds"] == int(how == "ranged")
         if how == "ranged":
             assert tm["ranges"] >= 4
+            assert tm["range_rounds"] >= tm["ranges"]
         if dev == cuda:
             assert st.keys.is_cuda and cuda_merge.merge.launches == (
-                before + tm["tier_merges"] + tm["fold_merges"])
+                before + tm["tier_merges"] + tm["fold_merges"]
+                + tm["range_rounds"])
         stores.append(st)
     g, c = stores
     eager = api.CountStore(k, counts_n=2, device=cuda)
@@ -960,6 +962,68 @@ def test_spilled_store_on_card_matches_cpu(cuda, k, how, tmp_path,
         assert torch.equal(g.cnt.cpu(), other.cnt.cpu())
         np.testing.assert_array_equal(g.total_added, other.total_added)
     assert not list(tmp_path.glob("*/kmh_spill_*"))
+
+
+def test_range_pass_on_card_stays_within_the_fold_budget(cuda,
+                                                         monkeypatch):
+    """A ranged fold of six overlapping spilled runs of 2,000,000 rows,
+    each range's six slices merged in one pass of three B3 rounds: the
+    pass adds at most the fold budget to the card's allocated bytes, B3
+    runs ``range_rounds`` times, and the table is bitwise an unspilled
+    card store's."""
+    budget = 64 << 20
+    rng = np.random.default_rng(27)
+    pool = np.unique(rng.integers(-2 ** 63, 2 ** 63 - 1, size=6_000_000,
+                                  dtype=np.int64))
+    st = api.CountStore(32, spill_bytes=0, fold_budget_bytes=budget,
+                        device=cuda)
+    plain = api.CountStore(32, device=cuda)
+    for _ in range(6):
+        keys = torch.from_numpy(np.sort(rng.choice(pool, 2_000_000,
+                                                   replace=False)))
+        cnt = torch.from_numpy(rng.integers(1, 50, size=(2_000_000, 1)))
+        for store in (st, plain):
+            store.add_run(keys, cnt, int(cnt.sum()))
+    plain.flush()
+    assert len(st._spilled) == 6 and not st._runs
+    grown = []
+    merge_range = count_store.CountStore._merge_range
+
+    def measured(self, parts):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = merge_range(self, parts)
+        torch.cuda.synchronize()
+        grown.append(torch.cuda.max_memory_allocated() - held)
+        return out
+
+    monkeypatch.setattr(count_store.CountStore, "_merge_range", measured)
+    before = cuda_merge.merge.launches
+    st.flush()
+    tm = st.timings
+    assert tm["ranged_folds"] == 1 and tm["ranges"] == len(grown) >= 4
+    assert tm["fold_merges"] == 0 and tm["range_rounds"] == 3 * tm["ranges"]
+    assert cuda_merge.merge.launches == before + tm["range_rounds"]
+    assert 0 < max(grown) <= budget
+    assert torch.equal(st.keys, plain.keys) and torch.equal(st.cnt, plain.cnt)
+
+
+def test_store_without_spill_launches_b3_per_two_run_merge(cuda):
+    """A store with no ``spill_bytes`` never enters the range pass: its
+    tier merges and its fold launch B3 once per two-run merge."""
+    st = api.CountStore(21, counts_n=2, device=cuda)
+    st.run_build_size = 1 << 15
+    before = cuda_merge.merge.launches
+    for raw, source in spill_batches(21, 21):
+        st.add_kmers(raw, torch.ones_like(raw, dtype=torch.bool),
+                     source=source, defer=True)
+    st.flush()
+    tm = st.timings
+    assert tm["tier_merges"] >= 2 and tm["folds"] == 1
+    assert tm["spills"] == tm["ranged_folds"] == tm["range_rounds"] == 0
+    assert cuda_merge.merge.launches == (
+        before + tm["tier_merges"] + tm["fold_merges"])
 
 
 def test_drop_store_on_card_matches_cpu(cuda, tmp_path):

@@ -114,7 +114,8 @@ def test_ranged_fold_matches_jax_and_eager(k, monkeypatch):
     assert_same(t, j, eager)
     tm = t.timings
     assert tm["ranged_folds"] == 1 and tm["ranges"] >= 4
-    assert tm["fold_merges"] > merges  # slices merged two at a time
+    # every range merged in one pass of B3 rounds, no two-run merge
+    assert tm["fold_merges"] == merges and tm["range_rounds"] > 0
     assert not t._spilled and not t._runs
     drive(t, j, eager, 7, k, n_batches=1, size=500)  # and refold on top
     assert_same(t, j, eager)
@@ -199,6 +200,80 @@ def test_ranged_fold_edges(monkeypatch):
     assert_same(t, j, eager)
     assert t.timings["ranged_folds"] == 1 and t.timings["ranges"] >= 2
     assert t.counts_dict()[int(top)][0] > 1  # all-G is a k-mer, not a pad
+
+
+def overlapping_runs(seed, k, m, pool_size):
+    """m runs over one pool of distinct k-mers: run j leaves out every
+    (m + 1)-th pool key from phase j, so the runs overlap heavily and every
+    few consecutive pool keys hold a key of each run; within a run a key is
+    seen once or twice."""
+    rng = np.random.default_rng(seed)
+    top = (1 << (2 * k)) - 1
+    pool = np.unique(rng.integers(0, top, size=pool_size, dtype=np.uint64,
+                                  endpoint=True))
+    pool[-1] = top  # the all-G k-mer is a key like any other
+    x = np.arange(pool.size)
+    for j in range(m):
+        keys = pool[x % (m + 1) != j]
+        yield np.concatenate([keys, keys[rng.random(keys.size) < 0.3]])
+
+
+# case: (runs, fold budget in rows of a range; 0 = the smallest budget)
+RANGE_CASES = {"one slice": (1, 40), "two slices": (2, 40),
+               "five slices": (5, 40), "repeated splitters": (3, 0)}
+
+
+@pytest.mark.parametrize("case", list(RANGE_CASES))
+@pytest.mark.parametrize("counts_n", [1, 2])
+@pytest.mark.parametrize("k", [21, 32])
+def test_range_pass_is_the_unspilled_table(k, counts_n, case, monkeypatch):
+    """Every run spilled at once and folded by key range in ranges of a
+    known number of slices S, each merged in one pass: ceil(log2 S) B3
+    rounds a range, no two-run merge; the table and spectra are bitwise
+    those of an unspilled store and of the JAX store folding by range."""
+    m, per_range = RANGE_CASES[case]
+    row_bytes = 8 + 8 * counts_n
+    budget = per_range * tcs.MERGE_PEAK_FACTOR * row_bytes
+    monkeypatch.setenv("KMH_FOLD_BUDGET_BYTES", str(max(budget, 1)))
+    t = CountStore(k, counts_n=counts_n, spill_bytes=0,
+                   fold_budget_bytes=budget, device="cpu")
+    j = JaxStore(k, counts_n=counts_n, spill_bytes=0)
+    plain = CountStore(k, counts_n=counts_n, device="cpu")
+    for r, raw in enumerate(overlapping_runs(k + m, k, m, 300)):
+        tr, jr = run_of(raw, counts_n, source=r % counts_n)
+        for st in (t, plain):
+            st.add_run(*tr, source=r % counts_n)
+        j.add_run(*jr)
+    j._flush_deferred()
+    assert len(t._spilled) == m and not t._runs
+    plain.flush()
+    slices = []
+    merge_range = CountStore._merge_range
+
+    def count_slices(self, parts):
+        slices.append(len(parts))
+        return merge_range(self, parts)
+
+    monkeypatch.setattr(CountStore, "_merge_range", count_slices)
+    b3 = []
+    merge = tcs.cuda_merge.merge
+    monkeypatch.setattr(tcs.cuda_merge, "merge",
+                        lambda *a: b3.append(a[2]) or merge(*a))
+    assert_same(t, j, plain)
+    tm = t.timings
+    assert tm["ranged_folds"] == 1 and tm["fold_merges"] == 0
+    assert tm["ranges"] == len(slices) >= 2
+    assert tm["range_rounds"] == sum((s - 1).bit_length() for s in slices)
+    assert tm["range_rounds"] == len(b3)
+    if case == "repeated splitters":
+        # a range a row: more ranges than the largest run has rows, so
+        # splitters repeat and their ranges are empty
+        assert len(slices) < tm["rejoined_rows"]
+    else:
+        assert set(slices) == {m}
+    for max_count in (1, 3):
+        np.testing.assert_array_equal(t.spectrum(max_count),
+                                      plain.spectrum(max_count))
 
 
 def test_flush_seeds_from_a_spilled_run_without_the_ranged_fold():
