@@ -1119,28 +1119,41 @@ def seq_kmer_depth(store: CountStore, seq, k: int,
     are window-start-aligned. ``semantics="c"`` is the reference byte for
     byte: the one-column shift, the stale-register windows across N gaps
     after exactly-k regions, and the partial-window write at the end of the
-    sequence (see :func:`_seq_kmer_depth_c`)."""
+    sequence (see :func:`_seq_kmer_depth_c`).
+
+    The call is the span ``kmh.count.depth``; it adds its host seconds to
+    ``store.timings["depth_s"]`` and the sequence's window starts
+    (``len(seq) - k + 1``) to ``store.timings["depth_windows"]``."""
     if store.k != k:
         raise ValueError("Receieved error from seq_kmer_counts: k mismatch")
     if semantics not in ("intent", "c"):
         raise ValueError(f"unknown semantics {semantics!r}")
-    if semantics == "c":  # its planner reads the sequence on the host
-        if isinstance(seq, torch.Tensor):
-            seq = seq.cpu().numpy()
-        return _seq_kmer_depth_c(store, as_sequence(seq), k)
-    if not isinstance(seq, torch.Tensor):
-        seq = torch.from_numpy(as_sequence(seq))
-    x = seq.to(store.device, torch.uint8).contiguous()
-    if x.dim() != 1:
-        raise ValueError("seq must be a single sequence")
-    L = int(x.shape[0])
-    out = torch.full((store.counts_n, L), _NA, dtype=torch.int32,
-                     device=store.device)
-    if L == 0:
-        return out
-    key, valid = enc.encode_stream(x, k, L, canonical=True)
-    rows = store.lookup(key)  # [L, counts_n]
-    return torch.where(valid[None, :], rows.T, out)
+    t0 = time.perf_counter()
+    with span("kmh.count.depth"):
+        if semantics == "c":  # its planner reads the sequence on the host
+            if isinstance(seq, torch.Tensor):
+                seq = seq.cpu().numpy()
+            seq = as_sequence(seq)
+            L = int(seq.shape[0])
+            out = _seq_kmer_depth_c(store, seq, k)
+        else:
+            if not isinstance(seq, torch.Tensor):
+                seq = torch.from_numpy(as_sequence(seq))
+            x = seq.to(store.device, torch.uint8).contiguous()
+            if x.dim() != 1:
+                raise ValueError("seq must be a single sequence")
+            L = int(x.shape[0])
+            out = torch.full((store.counts_n, L), _NA, dtype=torch.int32,
+                             device=store.device)
+            if L:
+                key, valid = enc.encode_stream(x, k, L, canonical=True)
+                rows = store.lookup(key)  # [L, counts_n]
+                out = torch.where(valid[None, :], rows.T, out)
+    # a sharded store's timings start without these keys
+    tm = store.timings
+    tm["depth_s"] = tm.get("depth_s", 0.0) + time.perf_counter() - t0
+    tm["depth_windows"] = tm.get("depth_windows", 0) + max(L - k + 1, 0)
+    return out
 
 
 def _plan_depth_c(seq: np.ndarray, k: int):

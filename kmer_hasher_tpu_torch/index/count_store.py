@@ -322,6 +322,11 @@ class CountStore:
     back to the device and their merges) and the rows uploaded there;
     ``staging_bytes`` and ``staging_s`` the bytes and host seconds of every
     copy through the pinned staging buffers (a CUDA store only).
+    ``spectrum_n_s`` is the host seconds inside ``kmh.store.spectrum_n``
+    (:meth:`spectrum_n`, its readbacks included); ``depth_s`` and
+    ``depth_windows`` the host seconds inside ``kmh.count.depth`` and the
+    window starts of the sequences looked up there
+    (``counting.seq_kmer_depth``).
 
     ``spill_bytes`` / ``spill_dir`` / ``fold_budget_bytes`` and
     ``budget_semantics`` are described in the module's docstring.
@@ -390,7 +395,9 @@ class CountStore:
                         "fold_s": 0.0, "spills": 0, "spill_s": 0.0,
                         "spilled_rows": 0, "ranged_folds": 0, "ranges": 0,
                         "rejoin_s": 0.0, "rejoined_rows": 0,
-                        "staging_bytes": 0, "staging_s": 0.0}
+                        "staging_bytes": 0, "staging_s": 0.0,
+                        "spectrum_n_s": 0.0, "depth_s": 0.0,
+                        "depth_windows": 0}
         self._staging = _Staging(self.device, self.timings)
 
     def _empty_table(self) -> Run:
@@ -844,18 +851,21 @@ class CountStore:
             raise ValueError("comb_inner values must be 0 or 1")
         if (comb >= (1 << self.counts_n)).any():
             raise ValueError("comb values must be < 2^counts_n")
-        self.flush()
-        C = self.counts_n
-        smin = torch.from_numpy(source_min).to(self.device)
-        bit = 1 << torch.arange(C, device=self.device)
-        flags = ((self.cnt >= smin[None, :]) * bit[None, :]).sum(dim=1)
-        cl = self.cnt.clamp(max=max_count)
-        out = np.zeros((len(comb) * C, max_count + 1), np.float64)
-        for jj, (cb, inner) in enumerate(zip(comb.tolist(),
-                                             comb_inner.tolist())):
-            sel = (flags == cb) if inner == 1 else ((flags & cb) > 0)
-            rows = cl[sel]
-            for s in range(C):
-                out[jj * C + s] = torch.bincount(
-                    rows[:, s], minlength=max_count + 1).cpu().numpy()
+        t0 = time.perf_counter()
+        with span("kmh.store.spectrum_n"):
+            self.flush()
+            C = self.counts_n
+            smin = torch.from_numpy(source_min).to(self.device)
+            bit = 1 << torch.arange(C, device=self.device)
+            flags = ((self.cnt >= smin[None, :]) * bit[None, :]).sum(dim=1)
+            cl = self.cnt.clamp(max=max_count)
+            out = np.zeros((len(comb) * C, max_count + 1), np.float64)
+            for jj, (cb, inner) in enumerate(zip(comb.tolist(),
+                                                 comb_inner.tolist())):
+                sel = (flags == cb) if inner == 1 else ((flags & cb) > 0)
+                rows = cl[sel]
+                for s in range(C):
+                    out[jj * C + s] = torch.bincount(
+                        rows[:, s], minlength=max_count + 1).cpu().numpy()
+        self.timings["spectrum_n_s"] += time.perf_counter() - t0
         return out

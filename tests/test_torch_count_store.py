@@ -215,7 +215,8 @@ def test_folds_of_two_runs_are_counted_apart_from_tier_merges():
                               "range_rounds",
                               "fold_s", "spills", "spill_s", "spilled_rows",
                               "ranged_folds", "ranges", "rejoin_s",
-                              "rejoined_rows", "staging_bytes", "staging_s"}
+                              "rejoined_rows", "staging_bytes", "staging_s",
+                              "spectrum_n_s", "depth_s", "depth_windows"}
     assert (t.timings["spills"] == t.timings["ranged_folds"]
             == t.timings["range_rounds"] == 0)
 
